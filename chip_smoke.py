@@ -6,24 +6,40 @@ Run from the repository root:  python3 chip_smoke.py
 1. Prints the card (nvidia-smi name and power limit); fails without one.
 2. Builds the CUDA kernels from tiler_tpu_torch/csrc.
 3. Holds each kernel against its plain PyTorch version on the card at
-   the main path's shapes, and times both:
-   - tk_select: 4,096 corpus tiles, P=1024, S=16, bit-identical;
-   - knn_bucket_top2: 14,400 cells x 80,000 tiles, k=64, keys within
-     2^-12 relative (f32 sums in another order), plus the recall of the
-     merged top-64 against an exact f32 brute force.
-4. Encodes a 1280x720x32 synthetic clip (bench.synthetic_clip) with the
-   reference defaults through Encoder(EncoderSettings(), device="cuda")
-   .run_all, with every kernel's launch count set to 0 just before and
-   read just after; the corpus must reach the knn kernel's gate
-   (T >= 65,536) and both kernels must have run. The stream must decode
+   the shapes of one launch on the main paths (the encode below: corpus
+   T = 116,097 tiles, P=1024, S=16, k=64, cells in rows of 8,192), and
+   times both (and the one PyTorch call that computes the same function,
+   where there is one):
+   - tk_select: the whole corpus in one launch, bit-identical;
+   - knn_bucket_top2 (B2) and knn_bucket_top2_v1: 8,192 cells x the
+     corpus, keys within 2^-12 relative (f32 sums in another order) and
+     >= 95% identical, plus the recall of the merged top-64 against an
+     exact f32 brute force (>= 0.95);
+   - blockify_field: the 720p, radius-32 window field (98 x 168 blocks of
+     64 x 192 bf16), bit-identical.
+4. Encodes a 1280x720x32 synthetic clip (utils/clips.synthetic_clip)
+   through Encoder(settings, device="cuda").run_all on two paths, each
+   with every kernel's launch count set to 0 just before and read just
+   after: the reference defaults (tk_select and B2 must run), and
+   motion_field="im2row" with knn_backend="pallas_v1" (blockify_field,
+   knn_bucket_top2_v1 and tk_select must run). On each the corpus must
+   reach the top-k kernels' gate (T >= 65,536) and the stream must decode
    to 32 frames whose first frame re-renders exactly from the encoder
-   state. The encode then runs once more for times without start-up
-   costs, and must write a stream of the same size.
-5. Encodes a small clip on the card and on the CPU (plain versions):
+   state. Each encode then runs once more for times without start-up
+   costs, and must write a stream of the same size. A third encode,
+   knn_backend="pallas_v1" with the passes field, isolates the field: the
+   im2row path must land within 0.1 dB PSNR-HVS and 2% bytes of it, and
+   no more than 0.1 dB below the default path (v1 and B2 rank
+   differently, so the streams differ).
+5. Runs both top-k kernels and their plain versions on the encode's own
+   corpus and cells: each kernel's recall of the exact top-64 must equal
+   its plain version's within 0.005.
+6. Encodes a small clip on the card and on the CPU (plain versions):
    RGB-PSNR within 0.1 dB and bytes within 2%.
 
 Prints per-stage times, then a JSON line of the kernels, the card line,
 and last {"ok": true, "device": {...}}. Exits nonzero on any failure.
+Takes about two minutes on one H100, the kernels' build included.
 """
 import json
 import os
@@ -34,7 +50,18 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-STREAM = os.path.join(ROOT, "build", "chip_smoke", "smoke.gtm")
+STREAM_DIR = os.path.join(ROOT, "build", "chip_smoke")
+# published H100 SXM peaks (the card's data sheet): the least time of a
+# kernel is the larger of its bytes over HBM_BPS and its operations over
+# the peak of their type
+HBM_BPS = 3.35e12
+BF16_OPS = 989e12  # dense tensor cores
+FP32_OPS = 67e12  # outside the tensor cores; the table has no int32 rate,
+# so tk_select's integer operations are counted against this one too
+# one launch on the main paths: the encode's corpus (every run so far
+# measured T = 116,097 on this clip) and a row of reconstruct's cells
+CORPUS_T = 116097
+CELL_ROW = 8192
 
 
 def card_line() -> str:
@@ -60,7 +87,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_tk(torch, dev, T=4096, P=1024, S=16):
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
+    """(least milliseconds, "bytes" or "operations")."""
+    tb, to = n_bytes / HBM_BPS, n_ops / peak_ops
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def check_tk(torch, dev, T=CORPUS_T, P=1024, S=16):
     from tiler_tpu_torch.kernels import tk_dither as tk
 
     rng = np.random.default_rng(1)
@@ -78,83 +111,178 @@ def check_tk(torch, dev, T=4096, P=1024, S=16):
         raise AssertionError(f"tk_select differs from its plain version ({err})")
     ms = cuda_ms(lambda: tk.tk_select(pix, mirror, pidx, table), 20)
     plain_ms = cuda_ms(lambda: tk.tk_select_plain(pix, mirror, pidx, table), 3)
+    # bytes: each input once (the palette table whole), the slots out;
+    # operations: ~14 integer ops per (pixel, step, candidate colour)
+    n_bytes = pix.numel() + mirror.numel() + 4 * pidx.numel() + 4 * table.numel() + T * 64
+    bms, by = bound_ms(n_bytes, 14.0 * T * 64 * tk.STEPS * S, FP32_OPS)
     print(f"tk_select: {T} tiles P={P} S={S}: bit-identical; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None}
 
 
-def check_knn(torch, dev, N=14400, T=80000, k=64):
-    from tiler_tpu_torch.kernels import knn_topk as kn
+def _key_agreement(torch, pairs, N, decode):
+    """Max abs and relative error of the decoded keys, and the smallest
+    share of identical keys, over the (kernel, plain) key pairs."""
+    max_err, rel, same = 0.0, 0.0, []
+    for a, b in pairs:
+        da, db = decode(a[:, :N]).double(), decode(b[:, :N]).double()
+        max_err = max(max_err, float((da - db).abs().max()))
+        rel = max(rel, float(((da - db).abs() / db.abs().clamp_min(1e-30)).max()))
+        same.append(float((a[:, :N] == b[:, :N]).float().mean()))
+    return max_err, rel, min(same)
 
-    Tp = -(-T // kn.TP_ALIGN) * kn.TP_ALIGN
+
+def _recall(torch, idx, feats, ds, k):
+    """Share of the exact f32 brute-force top-k that idx [N, k] holds."""
+    hits = []
+    d2 = (ds * ds).sum(1)
+    for c0 in range(0, feats.shape[0], 2048):
+        f = feats[c0:c0 + 2048]
+        dist = (f * f).sum(1, keepdim=True) - 2 * f @ ds.T + d2  # exact f32
+        want = torch.sort(dist, dim=1, stable=True).indices[:, :k]
+        hit = (idx[c0:c0 + 2048, :, None].long() == want[:, None, :]).any(-1)
+        hits.append(hit.float().sum(1))
+    return float(torch.cat(hits).mean()) / k
+
+
+def _knn_inputs(torch, dev, N, T):
     gen = torch.Generator(device=dev).manual_seed(2)
     feats = torch.randn(N, 192, device=dev, generator=gen) * 50
     ds = torch.randn(T, 192, device=dev, generator=gen) * 50
+    return feats, ds
+
+
+def _knn_bound(N, T, depth, nb):
+    """The distances of N cells to T tiles: 2 * 192 operations per pair
+    on bf16 inputs; bytes: both bf16 operands, the f32 norms, two int32
+    keys per cell and bucket out."""
+    n_bytes = 2 * depth * (N + T) + 4 * T + 2 * 4 * nb * N
+    return bound_ms(n_bytes, 2.0 * N * T * 192, BF16_OPS)
+
+
+def check_knn(torch, dev, N=CELL_ROW, T=CORPUS_T, k=64):
+    from tiler_tpu_torch.kernels import knn_topk as kn
+
+    Tp = -(-T // kn.TP_ALIGN) * kn.TP_ALIGN
+    feats, ds = _knn_inputs(torch, dev, N, T)
     dsTa = kn.knn_prep2(ds, Tp)
     fa = kn.fold_cells(feats, -(-N // kn.CELL_BLOCK) * kn.CELL_BLOCK)
     k1, k2 = kn.knn_bucket_top2(fa, dsTa)
     p1, p2 = kn.knn_bucket_top2_plain(fa, dsTa)
     torch.cuda.synchronize()
-    max_err, rel, same = 0.0, 0.0, []
-    for a, b in ((k1, p1), (k2, p2)):
-        da = (a[:, :N] & ~0x1FF).view(torch.float32).double()
-        db = (b[:, :N] & ~0x1FF).view(torch.float32).double()
-        max_err = max(max_err, float((da - db).abs().max()))
-        rel = max(rel, float(((da - db).abs() / db.clamp_min(1e-30)).max()))
-        same.append(float((a[:, :N] == b[:, :N]).float().mean()))
-    if rel > 2.0 ** -12 or min(same) < 0.95:
+    max_err, rel, same = _key_agreement(
+        torch, ((k1, p1), (k2, p2)), N, lambda key: (key & ~0x1FF).view(torch.float32))
+    if rel > 2.0 ** -12 or same < 0.95:
         raise AssertionError(f"knn_bucket_top2 vs plain: rel {rel:.3g}, same keys {same}")
     idx, _ = kn.knn_bucket_topk2(feats, dsTa, k)
-    recall = []
-    d2 = (ds * ds).sum(1)
-    for c0 in range(0, N, 2048):
-        f = feats[c0:c0 + 2048]
-        dist = (f * f).sum(1, keepdim=True) - 2 * f @ ds.T + d2  # exact f32
-        want = torch.sort(dist, dim=1, stable=True).indices[:, :k]
-        hit = (idx[c0:c0 + 2048, :, None].long() == want[:, None, :]).any(-1)
-        recall.append(hit.float().sum(1))
-    recall = float(torch.cat(recall).mean()) / k
+    recall = _recall(torch, idx, feats, ds, k)
     if recall < 0.95:
         raise AssertionError(f"knn top-{k} recall {recall:.4f} vs f32 brute force")
     ms = cuda_ms(lambda: kn.knn_bucket_top2(fa, dsTa), 5)
     plain_ms = cuda_ms(lambda: kn.knn_bucket_top2_plain(fa, dsTa), 2)
+    # context only (no one PyTorch call computes the bucket top-2): the
+    # cuBLAS bf16 product of the same folded operands, output bf16
+    gemm_ms = cuda_ms(lambda: fa @ dsTa, 5)
+    bms, by = _knn_bound(N, T, kn.KDA, Tp // kn.TB)
     print(f"knn_bucket_top2: {N} cells x {T} tiles k={k}: keys rel err {rel:.3g}, "
-          f"same keys {min(same):.4f}, recall vs f32 brute force {recall:.4f}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+          f"same keys {same:.4f}, recall vs f32 brute force {recall:.4f}; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}); "
+          f"context: cuBLAS bf16 GEMM of the same operands {gemm_ms:.3f} ms", flush=True)
     return {"max_abs_err": max_err, "max_rel_err": rel, "recall": recall,
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "gemm_ms": gemm_ms}
 
 
-def encode_main_path(F=32, H=720, W=1280, settings=None, device="cuda", min_corpus=65536):
-    from bench import synthetic_clip
-    from tiler_tpu.bitstream.gtm import GTMDecoder
-    from tiler_tpu.config import EncoderSettings
+def check_knn_v1(torch, dev, N=CELL_ROW, T=CORPUS_T, k=64):
+    from tiler_tpu_torch.kernels import knn_topk as kn
+
+    Tp = -(-T // kn.TP_ALIGN) * kn.TP_ALIGN
+    feats, ds = _knn_inputs(torch, dev, N, T)
+    dsT, d2 = kn.knn_prep_v1(ds, Tp)
+    fb = torch.nn.functional.pad(feats.to(torch.bfloat16),
+                                 (0, 0, 0, -(-N // kn.CELL_BLOCK) * kn.CELL_BLOCK - N))
+    k1, k2 = kn.knn_bucket_top2_v1(fb, dsT, d2)
+    p1, p2 = kn.knn_bucket_top2_v1_plain(fb, dsT, d2)
+    torch.cuda.synchronize()
+    max_err, rel, same = _key_agreement(
+        torch, ((k1, p1), (k2, p2)), N,
+        lambda key: kn.sortable(key & ~0x1FF).view(torch.float32))
+    if rel > 2.0 ** -12 or same < 0.95:
+        raise AssertionError(f"knn_bucket_top2_v1 vs plain: rel {rel:.3g}, same keys {same}")
+    idx, _ = kn.knn_bucket_topk(feats, dsT, d2, k)
+    recall = _recall(torch, idx, feats, ds, k)
+    if recall < 0.95:
+        raise AssertionError(f"knn v1 top-{k} recall {recall:.4f} vs f32 brute force")
+    ms = cuda_ms(lambda: kn.knn_bucket_top2_v1(fb, dsT, d2), 5)
+    plain_ms = cuda_ms(lambda: kn.knn_bucket_top2_v1_plain(fb, dsT, d2), 2)
+    gemm_ms = cuda_ms(lambda: fb @ dsT, 5)  # context only, as for B2
+    bms, by = _knn_bound(N, T, kn.KD, Tp // kn.TB)
+    print(f"knn_bucket_top2_v1: {N} cells x {T} tiles k={k}: keys rel err {rel:.3g}, "
+          f"same keys {same:.4f}, recall vs f32 brute force {recall:.4f}; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}); "
+          f"context: cuBLAS bf16 GEMM of the same operands {gemm_ms:.3f} ms", flush=True)
+    return {"max_abs_err": max_err, "max_rel_err": rel, "recall": recall,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "gemm_ms": gemm_ms}
+
+
+def check_blockify(torch, dev, mh=98, mw=168, K=192):
+    """The motion field of a 1280x720 frame at radius 32 (P = 32)."""
+    from tiler_tpu_torch.kernels import blockify as bl
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    F = torch.randn(8 * mh, 8 * mw, K, device=dev, generator=gen).to(torch.bfloat16)
+    got = bl.blockify_field(F)
+    want = bl.blockify_field_plain(F)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("blockify_field differs from its plain version")
+    ms = cuda_ms(lambda: bl.blockify_field(F), 20)
+    plain_ms = cuda_ms(lambda: bl.blockify_field_plain(F), 20)
+    library_ms = cuda_ms(lambda: F.view(mh, 8, mw, 8, K).permute(0, 2, 1, 3, 4).contiguous(), 20)
+    bms, by = bound_ms(2 * F.numel() * F.element_size(), 0.0, BF16_OPS)
+    print(f"blockify_field: [{8 * mh}, {8 * mw}, {K}] bf16: bit-identical; kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, permute+contiguous {library_ms:.3f} ms, "
+          f"bound {bms:.4f} ms ({by})", flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": library_ms}
+
+
+def encode_path(name, settings, kernels, F=32, H=720, W=1280, min_corpus=65536,
+                device="cuda", again=True):
+    """One encode of the clip through the Encoder on the card, with every
+    kernel's count set to 0 just before and read just after: each of
+    ``kernels`` must have launched. Checks the decode and frame 0, then
+    (with ``again``) encodes once more for times without start-up costs."""
+    from tiler_tpu_torch.bitstream.gtm import GTMDecoder
     from tiler_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.utils.clips import synthetic_clip
 
     clip = synthetic_clip(F, H, W)
-    os.makedirs(os.path.dirname(STREAM), exist_ok=True)
-    enc = Encoder(settings or EncoderSettings(), device=device,
-                  log=lambda *a: print(*a, flush=True))
+    os.makedirs(STREAM_DIR, exist_ok=True)
+    stream = os.path.join(STREAM_DIR, f"{name}.gtm")
+    enc = Encoder(settings, device=device, log=lambda *a: print(*a, flush=True))
     reset_launch_counts()
     t0 = time.monotonic()
-    enc.run_all(clip, fps=25.0, out_path=STREAM)
+    enc.run_all(clip, fps=25.0, out_path=stream)
     wall = time.monotonic() - t0
     counts = launch_counts()
     st = enc.state
     T = enc.step_stats["corpus_tiles"]
-    print(f"encode {W}x{H}x{F}: {wall:.3f} s; stages "
+    print(f"[{name}] encode {W}x{H}x{F}: {wall:.3f} s; stages "
           + " ".join(f"{k}={v:.3f}" for k, v in enc.timings.items()), flush=True)
-    print(f"corpus T={T}, cells through knn kernel={enc.step_stats['knn_kernel_cells']}, "
-          f"launches {counts}, PSNR-HVS {st.total_psnr:.4f} dB, "
-          f"{enc.stats.total_bytes} bytes", flush=True)
+    print(f"[{name}] corpus T={T}, cells through a top-k kernel="
+          f"{enc.step_stats['knn_kernel_cells']}, launches {counts}, PSNR-HVS "
+          f"{st.total_psnr:.4f} dB, {enc.stats.total_bytes} bytes", flush=True)
     if T < min_corpus:
-        raise AssertionError(f"corpus of {T} tiles is below the knn kernel gate {min_corpus}")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
+        raise AssertionError(f"corpus of {T} tiles is below the knn kernels' gate {min_corpus}")
+    for kname in kernels:
+        if counts[kname] <= 0:
+            raise AssertionError(f"kernel {kname} was not launched by the {name} path")
 
-    frames = np.stack(GTMDecoder(STREAM).decode_frames())
+    frames = np.stack(GTMDecoder(stream).decode_frames())
     if frames.shape != (F, H, W, 4) or len(frames) != F:
         raise AssertionError(f"decoded {frames.shape}, want {(F, H, W, 4)}")
     rgb = frames[..., :3]
@@ -174,38 +302,112 @@ def encode_main_path(F=32, H=720, W=1280, settings=None, device="cuda", min_corp
         raise AssertionError("decoded frame 0 differs from the encoder's reconstruction")
     if not np.isfinite(st.total_psnr) or psnr_rgb < 20.0:
         raise AssertionError(f"quality out of range: RGB-PSNR {psnr_rgb:.2f} dB")
-    print(f"decoded {len(frames)} frames, RGB-PSNR {psnr_rgb:.4f} dB; frame 0 "
+    print(f"[{name}] decoded {len(frames)} frames, RGB-PSNR {psnr_rgb:.4f} dB; frame 0 "
           f"matches the encoder state", flush=True)
+    out = {"frames": F, "height": H, "width": W, "wall_s": wall,
+           "stage_s": enc.timings, "corpus_tiles": T,
+           "knn_kernel_cells": enc.step_stats["knn_kernel_cells"],
+           "launches": counts, "psnr_hvs_db": st.total_psnr,
+           "psnr_rgb_db": psnr_rgb, "bytes": enc.stats.total_bytes}
+    if not again:
+        return out
     # the same encode again: the first one also paid one-time costs
-    # (CUDA context and library start-up, allocator growth)
-    again = Encoder(settings or EncoderSettings(), device=device, log=None)
+    # (CUDA context and library start-up, allocator growth, builds)
+    again = Encoder(settings, device=device, log=None)
     t0 = time.monotonic()
-    again.run_all(clip, fps=25.0, out_path=STREAM)
+    again.run_all(clip, fps=25.0, out_path=stream)
     wall2 = time.monotonic() - t0
-    print(f"second encode: {wall2:.3f} s; stages "
+    print(f"[{name}] second encode: {wall2:.3f} s; stages "
           + " ".join(f"{k}={v:.3f}" for k, v in again.timings.items()), flush=True)
     if again.stats.total_bytes != enc.stats.total_bytes:
-        raise AssertionError("the second encode wrote a different stream size")
-    return {"frames": F, "height": H, "width": W, "wall_s": wall,
-            "stage_s": enc.timings, "second_wall_s": wall2,
-            "second_stage_s": again.timings, "corpus_tiles": T,
-            "knn_kernel_cells": enc.step_stats["knn_kernel_cells"],
-            "launches": counts, "psnr_hvs_db": st.total_psnr,
-            "psnr_rgb_db": psnr_rgb, "bytes": enc.stats.total_bytes}
+        raise AssertionError(f"the second {name} encode wrote a different stream size")
+    return {**out, "second_wall_s": wall2, "second_stage_s": again.timings}
+
+
+def knn_on_encode_data(frames=(0, 16), k=64, F=32, H=720, W=1280, device="cuda"):
+    """Both top-k kernels on the encode's own data: the corpus and cells
+    of the clip at the reference defaults, up to the dither (the corpus
+    reconstruct ranks). Each kernel's recall of the exact float64 top-k
+    must equal its plain version's within 0.005; the two kernels' recalls
+    and the mean exact distance of the tiles each picks are printed (they
+    rank differently: B2 clamps its folded distance at 0, v1 keeps the
+    sign)."""
+    import torch
+
+    from tiler_tpu_torch.config import EncoderSettings
+    from tiler_tpu_torch.kernels import knn_topk as kn
+    from tiler_tpu_torch.pipeline import reconstruct as rc
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.pipeline.motion import tile_features_raster
+    from tiler_tpu_torch.utils.clips import synthetic_clip
+
+    enc = Encoder(EncoderSettings(), device=device, log=None)
+    enc.load_frames(synthetic_clip(F, H, W), 25.0)
+    enc.predict_motion().reduce().prepare_palettes().dither()
+    st = enc.state
+    ds = tile_features_raster(rc._render_corpus(
+        st.palettes_rgb.long(), st.corpus_pal_initial.long(), st.corpus_pal_pixels).float())
+    T = ds.shape[0]
+    if T < 2 * k * kn.TB:
+        raise AssertionError(f"corpus of {T} tiles is below the knn kernels' gate for k={k}")
+    Tp = -(-T // kn.TP_ALIGN) * kn.TP_ALIGN
+    dsTa = kn.knn_prep2(ds, Tp)
+    dsT, d2 = kn.knn_prep_v1(ds, Tp)
+    dsd = ds.double()
+    d2d = (dsd * dsd).sum(1)
+    hits, zero_keys, cells = {}, 0.0, 0
+    for f in frames:
+        feats = tile_features_raster(st.tiles_canon[f].float())
+        N = feats.shape[0]
+        cells += N
+        Np = -(-N // kn.CELL_BLOCK) * kn.CELL_BLOCK
+        fa = kn.fold_cells(feats, Np)
+        fb = torch.nn.functional.pad(feats.to(torch.bfloat16), (0, 0, 0, Np - N))
+        idx2, err2 = kn.knn_bucket_topk2(feats, dsTa, k)
+        zero_keys += float((err2 == 0).sum())  # B2 clamps its distance at 0
+        picks = {
+            "knn_bucket_top2": idx2,
+            "knn_bucket_top2 plain": kn._merge_topk(
+                *kn.knn_bucket_top2_plain(fa, dsTa), N, k)[0],
+            "knn_bucket_top2_v1": kn.knn_bucket_topk(feats, dsT, d2, k)[0],
+            "knn_bucket_top2_v1 plain": kn._merge_topk(
+                *kn.knn_bucket_top2_v1_plain(fb, dsT, d2), N, k)[0],
+        }
+        for c0 in range(0, N, 1024):
+            fc = feats[c0:c0 + 1024].double()
+            dist = (fc * fc).sum(1, keepdim=True) - 2 * fc @ dsd.T + d2d
+            want = torch.sort(dist, dim=1, stable=True).indices[:, :k]
+            chunks = [("exact", want)] + [(n, i[c0:c0 + 1024].long()) for n, i in picks.items()]
+            for name, sel in chunks:
+                hit = (sel[:, :, None] == want[:, None, :]).any(-1).float().sum()
+                h = hits.setdefault(name, [0.0, 0.0, 0])
+                h[0] += float(hit)
+                h[1] += float(dist.gather(1, sel).sum())
+                h[2] += sel.numel()
+    out = {name: {"recall": h[0] / h[2], "mean_dist": h[1] / h[2]} for name, h in hits.items()}
+    print(f"top-{k} on the encode's data (T={T}, frames {list(frames)}): "
+          + "; ".join(f"{n}: recall {v['recall']:.4f}, mean exact distance {v['mean_dist']:.1f}"
+                      for n, v in out.items())
+          + f"; B2 keys clamped to 0: {zero_keys / cells:.2f} of {k} per cell", flush=True)
+    for name in ("knn_bucket_top2", "knn_bucket_top2_v1"):
+        if abs(out[name]["recall"] - out[name + " plain"]["recall"]) > 0.005:
+            raise AssertionError(f"{name} and its plain version recall differently on "
+                                 f"the encode's data: {out}")
+    return out
 
 
 def small_clip_agreement():
     """The same small encode on the card and on the CPU (plain kernel
     versions): the end-to-end gate of docs/DETERMINISM.md."""
-    from bench import synthetic_clip
-    from tiler_tpu.bitstream.gtm import GTMDecoder
-    from tiler_tpu.config import EncoderSettings
+    from tiler_tpu_torch.bitstream.gtm import GTMDecoder
+    from tiler_tpu_torch.config import EncoderSettings
     from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.utils.clips import synthetic_clip
 
     clip = synthetic_clip(6, 64, 96)
     out = {}
     for dev in ("cuda", "cpu"):
-        path = os.path.join(os.path.dirname(STREAM), f"small_{dev}.gtm")
+        path = os.path.join(STREAM_DIR, f"small_{dev}.gtm")
         enc = Encoder(EncoderSettings(palette_count=8, motion_predict_radius=4,
                                       epu_knn_k=8, kmeans_iters=4), device=dev, log=None)
         enc.run_all(clip, fps=25.0, out_path=path)
@@ -227,6 +429,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
         return 2
+    from tiler_tpu_torch.config import EncoderSettings
     from tiler_tpu_torch.kernels import _build
 
     card = card_line()
@@ -236,24 +439,49 @@ def main() -> int:
     so = _build.build(verbose=True)
     print(f"kernels built in {time.monotonic() - t0:.2f} s -> {os.path.relpath(so, ROOT)}",
           flush=True)
-    tk = check_tk(torch, dev)
-    knn = check_knn(torch, dev)
+    checks = {"tk_select": check_tk(torch, dev), "knn_bucket_top2": check_knn(torch, dev),
+              "knn_bucket_top2_v1": check_knn_v1(torch, dev),
+              "blockify_field": check_blockify(torch, dev)}
     torch.cuda.empty_cache()
-    main_path = encode_main_path()
+    default = encode_path("default", EncoderSettings(), ("tk_select", "knn_bucket_top2"))
+    torch.cuda.empty_cache()
+    im2row_v1 = encode_path(
+        "im2row_v1", EncoderSettings(motion_field="im2row", knn_backend="pallas_v1"),
+        ("blockify_field", "knn_bucket_top2_v1", "tk_select"))
+    # the same top-k with the passes field: the im2row field must not move
+    # the encode (docs/DETERMINISM.md's 0.1 dB and 2% bytes)
+    passes_v1 = encode_path("passes_v1", EncoderSettings(knn_backend="pallas_v1"),
+                            ("knn_bucket_top2_v1", "tk_select"), again=False)
+    for ref in (passes_v1, default):
+        d_db = im2row_v1["psnr_hvs_db"] - ref["psnr_hvs_db"]
+        d_bytes = (im2row_v1["bytes"] - ref["bytes"]) / ref["bytes"]
+        print(f"im2row_v1 - {'passes_v1' if ref is passes_v1 else 'default'}: "
+              f"PSNR-HVS {d_db:+.6f} dB, bytes {d_bytes:+.4%}", flush=True)
+    if (abs(im2row_v1["psnr_hvs_db"] - passes_v1["psnr_hvs_db"]) > 0.1
+            or abs(im2row_v1["bytes"] - passes_v1["bytes"]) > 0.02 * passes_v1["bytes"]):
+        raise AssertionError("the im2row field moves the encode off the passes field's")
+    # v1 ranks otherwise than B2 (knn_on_encode_data): it may change the
+    # stream, but must not lose quality
+    if im2row_v1["psnr_hvs_db"] < default["psnr_hvs_db"] - 0.1:
+        raise AssertionError("the im2row / pallas_v1 encode lost quality against the default")
+    torch.cuda.empty_cache()
+    knn_on_encode_data()
     small_clip_agreement()
 
+    # each kernel's launches: from the encode of the path that it serves
+    # (tk_select serves both; its count is the default path's)
+    path_of = {"tk_select": default, "knn_bucket_top2": default,
+               "knn_bucket_top2_v1": im2row_v1, "blockify_field": im2row_v1}
+    sources = {"tk_select": ("tk_dither.cu", "tiler_tpu/kernels/tk_dither.py:147"),
+               "knn_bucket_top2": ("knn_topk.cu", "tiler_tpu/kernels/knn_topk.py:149"),
+               "knn_bucket_top2_v1": ("knn_topk.cu", "tiler_tpu/kernels/knn_topk.py:204"),
+               "blockify_field": ("blockify.cu", "tiler_tpu/kernels/blockify.py:46")}
     kernels = [
-        {"name": "tk_select", "route": "cuda",
-         "source": "tiler_tpu_torch/csrc/tk_dither.cu",
-         "replaces": "tiler_tpu/kernels/tk_dither.py:147",
-         "launches": main_path["launches"]["tk_select"],
-         "max_abs_err": tk["max_abs_err"], "ms": tk["ms"], "plain_ms": tk["plain_ms"]},
-        {"name": "knn_bucket_top2", "route": "cuda",
-         "source": "tiler_tpu_torch/csrc/knn_topk.cu",
-         "replaces": "tiler_tpu/kernels/knn_topk.py:149",
-         "launches": main_path["launches"]["knn_bucket_top2"],
-         "max_abs_err": knn["max_abs_err"], "ms": knn["ms"], "plain_ms": knn["plain_ms"]},
-    ]
+        {"name": name, "route": "cuda", "source": f"tiler_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": path_of[name]["launches"][name],
+         **{key: checks[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}}
+        for name, (src, replaces) in sources.items()]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card. Every test here needs a CUDA card and skips without one; this file
-imports no jax, so it runs on the card's machine:
+imports neither jax nor the JAX package, so it runs on the card's
+machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -8,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from tiler_tpu_torch.kernels import blockify as t_blk
 from tiler_tpu_torch.kernels import knn_topk as t_knn
 from tiler_tpu_torch.kernels import tk_dither as t_tk
 
@@ -63,6 +65,71 @@ def test_knn_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mh,mw,K", [(3, 5, 192), (13, 21, 64)])
+def test_blockify_kernel_matches_plain(cuda, mh, mw, K):
+    F = torch.randn(8 * mh, 8 * mw, K, generator=torch.Generator().manual_seed(mh))
+    F = F.to(torch.bfloat16)
+    before = t_blk.blockify_field.launches
+    got = t_blk.blockify_field(F.to(cuda))
+    torch.cuda.synchronize()
+    assert t_blk.blockify_field.launches == before + 1
+    assert torch.equal(got.cpu().view(torch.int16), t_blk.blockify_field(F).view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_knn_v1_kernel_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(8)
+    feats = torch.randn(1000, 192, generator=gen) * 50
+    dsT, d2 = t_knn.knn_prep_v1(torch.randn(8000, 192, generator=gen) * 50, 8192)
+    fb = torch.nn.functional.pad(feats.to(torch.bfloat16), (0, 0, 0, 24))
+    before = t_knn.knn_bucket_top2_v1.launches
+    k1, k2 = t_knn.knn_bucket_top2_v1(fb.to(cuda), dsT.to(cuda), d2.to(cuda))
+    p1, p2 = t_knn.knn_bucket_top2_v1_plain(fb, dsT, d2)
+    torch.cuda.synchronize()
+    assert t_knn.knn_bucket_top2_v1.launches == before + 1
+    # the same signed key up to f32 summation order: within a few key steps
+    for a, b in ((k1.cpu(), p1), (k2.cpu(), p2)):
+        ea = t_knn.sortable(a & ~0x1FF).view(torch.float32)
+        eb = t_knn.sortable(b & ~0x1FF).view(torch.float32)
+        assert torch.allclose(ea, eb, rtol=2.0 ** -12)
+        assert (a == b).float().mean() >= 0.95
+
+
+@pytest.mark.cuda
+def test_im2row_motion_on_the_card_matches_the_cpu(cuda):
+    """The im2row field and motion search on the card (cuBLAS f32 product,
+    blockify kernel) against the CPU (plain versions): vectors agree
+    except on near-ties, as in the CPU tests against the JAX package."""
+    from tiler_tpu_torch.ops.metrics import euclidean_to_psnr
+    from tiler_tpu_torch.pipeline import motion
+    from tiler_tpu_torch.utils.clips import synthetic_clip
+
+    clip = torch.as_tensor(synthetic_clip(2, 72, 128, seed=4))
+    before = t_blk.blockify_field.launches
+    gy, gx, ge = (v.cpu() for v in motion.motion_search(clip[1].to(cuda), clip[0].to(cuda),
+                                                         16, "im2row"))
+    assert t_blk.blockify_field.launches == before + 1
+    wy, wx, we = motion.motion_search(clip[1], clip[0], 16, "im2row")
+    same = (gy == wy) & (gx == wx)
+    tie = (euclidean_to_psnr(ge) >= 51.0) & (euclidean_to_psnr(we) >= 51.0)
+    assert float((same | tie).float().mean()) >= 0.99
+    assert torch.allclose(ge[same], we[same], rtol=1e-5)
+
+
+def _write_y4m(path, frames, fps):
+    """C444 y4m of RGB frames (the JAX package's io/export.py layout)."""
+    H, W = frames[0].shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{W} H{H} F{round(fps * 1000000)}:1000000 Ip C444\n".encode())
+        for fr in frames:
+            rgb = fr.astype(np.float32)
+            y = rgb[..., 0] * 0.299 + rgb[..., 1] * 0.587 + rgb[..., 2] * 0.114
+            planes = (y, (rgb[..., 2] - y) * 0.492 + 128, (rgb[..., 0] - y) * 0.877 + 128)
+            f.write(b"FRAME \n" + b"".join(
+                np.clip(np.round(p), 0, 255).astype(np.uint8).tobytes() for p in planes))
+
+
+@pytest.mark.cuda
 def test_cli_settings_file_encodes_on_the_card(cuda, tmp_path):
     """The reference's single-argument form: python -m tiler_tpu_torch
     settings.ini runs the whole encode on the card."""
@@ -70,14 +137,13 @@ def test_cli_settings_file_encodes_on_the_card(cuda, tmp_path):
     import sys
     from pathlib import Path
 
-    from tiler_tpu.bitstream.gtm import GTMDecoder
-    from tiler_tpu.io.export import write_y4m
+    from tiler_tpu_torch.bitstream.gtm import GTMDecoder
 
     rng = np.random.default_rng(7)
     frames = np.clip(np.cumsum(rng.integers(-8, 9, (4, 48, 64, 3)), axis=0) + 128,
                      0, 255).astype(np.uint8)
     src, out, ini = tmp_path / "clip.y4m", tmp_path / "out.gtm", tmp_path / "s.ini"
-    write_y4m(str(src), list(frames), 25.0)
+    _write_y4m(str(src), list(frames), 25.0)
     ini.write_text(f"[Load]\nInputFileName={src}\nOutputFileName={out}\n"
                    "[Dither]\nPaletteCount=8\n[MotionPredict]\nMotionPredictRadius=4\n")
     subprocess.run([sys.executable, "-m", "tiler_tpu_torch", str(ini)], check=True,

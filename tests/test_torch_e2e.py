@@ -4,6 +4,8 @@ cross between the two packages.
 The end-to-end gate is docs/DETERMINISM.md's: both streams decode to the
 full frame count, with RGB-PSNR within 0.1 dB and bytes within 2%.
 """
+import dataclasses
+import pickle
 import subprocess
 import sys
 from pathlib import Path
@@ -16,6 +18,7 @@ from bench import synthetic_clip
 from tiler_tpu.bitstream.gtm import GTMDecoder
 from tiler_tpu.config import EncoderSettings
 from tiler_tpu.io.export import write_y4m
+from tiler_tpu.models import state as j_state
 from tiler_tpu.pipeline.encoder import Encoder as JaxEncoder
 from tiler_tpu_torch.pipeline.encoder import Encoder
 
@@ -68,14 +71,31 @@ def test_jax_checkpoint_after_dither_finishes_in_the_port(jax_stream, tmp_path):
     assert abs(_psnr_rgb(out) - _psnr_rgb(jax_stream[0])) <= 0.1
 
 
+def _as_jax_checkpoint(src, dst):
+    """The port writes its checkpoints with its own classes; rebuild the
+    same fields in the JAX package's classes."""
+    with open(src, "rb") as f:
+        d = pickle.load(f)
+    st = d["state"]
+    js = j_state.EncodeState(**{f.name: getattr(st, f.name)
+                                for f in dataclasses.fields(st)})
+    js.tilemap = j_state.TileMapSoA(**vars(st.tilemap))
+    js.keyframes = [j_state.KeyFrameInfo(**vars(k)) for k in st.keyframes]
+    with open(dst, "wb") as f:
+        pickle.dump({"state": js,
+                     "settings": EncoderSettings(**dataclasses.asdict(d["settings"]))}, f)
+
+
 def test_port_checkpoint_after_reduce_finishes_in_jax(jax_stream, tmp_path):
     ck = tmp_path / "after_reduce.ckpt"
     enc = Encoder(_settings(), log=None, device="cpu")
     enc.load_frames(CLIP, FPS).predict_motion().reduce()
     enc.save_checkpoint(str(ck))
+    assert b"tiler_tpu." not in ck.read_bytes()  # only the port's classes
+    _as_jax_checkpoint(ck, tmp_path / "as_jax.ckpt")
     out = tmp_path / "resumed.gtm"
     with jax.enable_x64(False):
-        jenc = JaxEncoder.load_checkpoint(str(ck), log=None)
+        jenc = JaxEncoder.load_checkpoint(str(tmp_path / "as_jax.ckpt"), log=None)
         jenc.prepare_palettes().dither().reconstruct().reindex().save(str(out))
     assert abs(_psnr_rgb(out) - _psnr_rgb(jax_stream[0])) <= 0.1
 

@@ -1,0 +1,168 @@
+"""The port's own copies of the host side against tiler_tpu's originals,
+and the rule that the port imports nothing of the JAX package.
+
+- settings: the same fields and defaults, the same parse of an .ini;
+- save, GTM decode and LZMA: byte-identical to the JAX package's;
+- the two-thread optimal parse of the port's codec finishes on the
+  payload that hangs the original (ROADMAP C6) and writes the bytes of
+  one thread;
+- checkpoints: the JAX package's load into the port's classes without
+  importing it, and no other name of that package is unpickled.
+
+That the port and chip_smoke.py import nothing of jax, the JAX package
+or bench.py is test_torch_ops.py::test_import_pulls_no_jax_or_triton.
+"""
+import dataclasses
+import pickle
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from bench import synthetic_clip
+from tiler_tpu import native as j_native
+from tiler_tpu.bitstream.gtm import GTMDecoder as JaxDecoder
+from tiler_tpu.config import EncoderSettings as JaxSettings
+from tiler_tpu.pipeline.save import save as jax_save
+from tiler_tpu_torch import native as t_native
+from tiler_tpu_torch.bitstream.gtm import GTMDecoder
+from tiler_tpu_torch.config import EncoderSettings
+from tiler_tpu_torch.models.convert import state_to_numpy
+from tiler_tpu_torch.pipeline import encoder as t_encoder
+from tiler_tpu_torch.pipeline.save import save
+from tiler_tpu_torch.utils import clips
+
+ROOT = Path(__file__).resolve().parents[1]
+SMALL = dict(palette_count=8, motion_predict_radius=4, epu_knn_k=8, kmeans_iters=4)
+
+INI = """[Load]
+InputFileName=clip.y4m
+OutputFileName=out.gtm
+StartFrame=3
+Scaling=1
+[Dither]
+PaletteCount=64
+PaletteSize=8
+DitheringMode=4
+DitheringUseThomasKnoll=True
+[GlobalTiling]
+GlobalTilingQualityBasedTileCount=3.5
+[TPU]
+MotionField=im2row
+KnnBackend=pallas_v1
+EpuKnnK=32
+"""
+
+
+@pytest.mark.parametrize("text", [None, INI], ids=["defaults", "ini"])
+def test_settings_equal_the_reference(text):
+    port = EncoderSettings.from_ini(text) if text else EncoderSettings()
+    ref = JaxSettings.from_ini(text) if text else JaxSettings()
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.to_ini() == ref.to_ini()
+
+
+def test_synthetic_clip_is_the_benchmark_clip():
+    for args in ((3, 64, 96, 0), (2, 40, 48, 5)):
+        assert np.array_equal(clips.synthetic_clip(*args), synthetic_clip(*args))
+
+
+@pytest.fixture(scope="module")
+def encoded_state():
+    """A small clip through the port on the CPU, up to the writer."""
+    enc = t_encoder.Encoder(EncoderSettings(**SMALL), log=None, device="cpu")
+    enc.load_frames(synthetic_clip(6, 64, 96, seed=0), 25.0)
+    enc.predict_motion().reduce().prepare_palettes().dither().reconstruct().reindex()
+    return state_to_numpy(enc.state)
+
+
+def test_save_and_decode_byte_identical(encoded_state, tmp_path):
+    mine, ref = tmp_path / "port.gtm", tmp_path / "jax.gtm"
+    stats = save(encoded_state, EncoderSettings(**SMALL), str(mine))
+    jstats = jax_save(encoded_state, JaxSettings(**SMALL), str(ref))
+    assert mine.read_bytes() == ref.read_bytes()
+    assert stats.total_bytes == jstats.total_bytes
+    frames = GTMDecoder(str(mine)).decode_frames()
+    want = JaxDecoder(str(ref)).decode_frames()
+    assert len(frames) == len(want) == 6
+    assert all(np.array_equal(a, b) for a, b in zip(frames, want))
+
+
+def _payloads():
+    rng = np.random.default_rng(0)
+    return [
+        b"",
+        bytes(5000),
+        rng.integers(0, 256, 20000, dtype=np.uint8).tobytes(),
+        (rng.integers(0, 4, 300_000, dtype=np.uint8).tobytes() + bytes(70_000)
+         + b"tiles" * 9000),
+    ]
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_lzma_bytes_equal_the_reference(i):
+    data = _payloads()[i]
+    for depth in (-2, 2):  # the optimal and the fast parse
+        mine = t_native.lzma_compress(data, depth=depth, threads=1)
+        assert mine == j_native.lzma_compress(data, depth=depth, threads=1)
+        assert t_native.lzma_decompress_stream(mine)[0] == data
+
+
+_TWO_THREADS = textwrap.dedent("""
+    from tiler_tpu_torch import native
+    data = bytes(2 << 20)
+    one = native.lzma_compress(data, threads=1)
+    for _ in range(5):
+        assert native.lzma_compress(data, threads=2) == one
+    assert native.lzma_decompress_stream(one)[0] == data
+    print("ok", len(one))
+""")
+
+
+def test_two_thread_optimal_parse_finishes():
+    """2 MB of zeros: the consumer emits long runs directly and gets ahead
+    of the match finder, which the original read as a full ring."""
+    t_native.get_lib()  # build outside the time limit
+    out = subprocess.run([sys.executable, "-c", _TWO_THREADS], capture_output=True,
+                         text=True, timeout=60, cwd=ROOT, check=True)
+    assert out.stdout.startswith("ok")
+
+
+def test_jax_checkpoint_loads_into_the_port_classes(tmp_path):
+    from tiler_tpu.models import state as j_state
+
+    st = j_state.EncodeState(fps=25.0, tilemap_w=2, tilemap_h=1)
+    st.tilemap = j_state.TileMapSoA.zeros(1, 2)
+    st.keyframes = [j_state.KeyFrameInfo(0, 0, 0)]
+    ck = tmp_path / "jax.ckpt"
+    ck.write_bytes(pickle.dumps({"state": st, "settings": JaxSettings(**SMALL)}))
+    enc = t_encoder.Encoder.load_checkpoint(str(ck), log=None, device="cpu")
+    assert type(enc.settings) is EncoderSettings
+    assert type(enc.state).__module__ == "tiler_tpu_torch.models.state"
+    assert type(enc.state.tilemap).__name__ == "TileMapSoA"
+    assert type(enc.state.keyframes[0]).__module__ == "tiler_tpu_torch.models.state"
+    assert enc.state.tilemap_size == 2
+
+
+def test_checkpoint_refuses_other_names_of_the_jax_package(tmp_path):
+    ck = tmp_path / "bad.ckpt"
+    # a pickle naming tiler_tpu.pipeline.encoder.Encoder, built by hand
+    ck.write_bytes(b"\x80\x04c" + b"tiler_tpu.pipeline.encoder\nEncoder\n" + b"q\x00.")
+    with pytest.raises(pickle.UnpicklingError, match="tiler_tpu.pipeline.encoder"):
+        t_encoder.Encoder.load_checkpoint(str(ck), log=None, device="cpu")
+
+
+def test_encoder_runs_on_the_card_unless_told_otherwise():
+    assert t_encoder.Encoder(log=None).device.type == "cuda"
+    assert t_encoder.Encoder(log=None, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("overrides", [dict(motion_field="im2row"),
+                                       dict(knn_backend="pallas_v1"),
+                                       dict(motion_field="im2row", knn_backend="pallas_v1")])
+def test_slice_settings_are_accepted(overrides):
+    enc = t_encoder.Encoder(EncoderSettings(**overrides), log=None, device="cpu")
+    assert all(getattr(enc.settings, k) == v for k, v in overrides.items())

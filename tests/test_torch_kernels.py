@@ -19,6 +19,7 @@ import torch
 from tiler_tpu.kernels import knn_topk as j_knn
 from tiler_tpu.kernels import tk_dither as j_tk
 from tiler_tpu.pipeline import dither as j_dither
+from tiler_tpu_torch.kernels import blockify as t_blk
 from tiler_tpu_torch.kernels import knn_topk as t_knn
 from tiler_tpu_torch.kernels import tk_dither as t_tk
 from tiler_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -154,4 +155,9 @@ def test_plain_versions_count_no_launches():
     t_tk.tk_select(*_tk_port(tiles, pidx, pal, valid, hm, vm))
     t_knn.knn_bucket_top2(torch.zeros(64, t_knn.KDA, dtype=torch.bfloat16),
                           torch.zeros(t_knn.KDA, 512, dtype=torch.bfloat16))
-    assert launch_counts() == {"tk_select": 0, "knn_bucket_top2": 0}
+    t_knn.knn_bucket_top2_v1(torch.zeros(64, t_knn.KD, dtype=torch.bfloat16),
+                             torch.zeros(t_knn.KD, 512, dtype=torch.bfloat16),
+                             torch.zeros(512))
+    t_blk.blockify_field(torch.zeros(16, 16, 8, dtype=torch.bfloat16))
+    assert launch_counts() == {"tk_select": 0, "knn_bucket_top2": 0,
+                               "knn_bucket_top2_v1": 0, "blockify_field": 0}

@@ -11,6 +11,7 @@ tests, which would make jax.random draw float64).
 On the CPU the port's kernel wrappers run their plain versions.
 """
 import copy
+import dataclasses
 
 import jax
 import numpy as np
@@ -84,7 +85,9 @@ def test_load_bit_identical(jax_run):
     assert np.array_equal(got.frames_rgb.numpy(), np.asarray(want.frames_rgb))
     assert np.array_equal(got.tilemap.hmirror, want.tilemap.hmirror)
     assert np.array_equal(got.tilemap.vmirror, want.tilemap.vmirror)
-    assert got.keyframes == want.keyframes
+    # the port's KeyFrameInfo is its own copy of the JAX class
+    assert ([dataclasses.astuple(k) for k in got.keyframes]
+            == [dataclasses.astuple(k) for k in want.keyframes])
     assert len(got.keyframes) == (2 if jax_run["name"] == "two_kf" else 1)
     assert np.array_equal(got.frame_kf, want.frame_kf)
     # f32 Pearson sums in another order: rounding only

@@ -1,17 +1,20 @@
 """tiler_tpu_torch: the GTM encoder of ``tiler_tpu`` on PyTorch and CUDA.
 
-A port of the JAX package's default single-device encode to torch
-tensors on one device (an NVIDIA H100 in production, the CPU in the
-tests). The JAX package stays the reference this package is tested
-against. The host-side modules that do not import jax (settings, encoder
-state, the GTM bitstream, LZMA, video I/O, the writer in
-``pipeline/save.py``) are imported from ``tiler_tpu``, not copied.
+A port of the JAX package's single-device encode to torch tensors on one
+device (an NVIDIA H100 by default, the CPU when the caller names it, as
+the tests do). The JAX package stays the reference this package is
+tested against; this package imports nothing of it and keeps its own
+copies of the host side.
 
+  config.py  encoder settings (the JAX package's fields and INI keys)
   ops/       colorspaces, DCT features, mirrors, metrics, threefry PRNG
   cluster/   weighted k-means
   kernels/   CUDA kernels (sources in csrc/) beside their plain versions
   pipeline/  the 8 encoder stages + the Encoder facade
-  models/    numpy <-> torch EncodeState conversion (checkpoint interop)
+  models/    EncodeState, and its numpy <-> torch conversion
+  bitstream/ GTM writer and decoder, LZMA codec (native/ builds lzma.cpp)
+  io/        video ingest
+  utils/     the synthetic test clip
 
 The reference computes its convolutions and einsums at full float32
 (HIGH/HIGHEST precision); TF32 and reduced-precision bf16 reductions are

@@ -13,7 +13,7 @@ import sys
 
 
 def _settings(path, overrides):
-    from tiler_tpu.config import EncoderSettings
+    from .config import EncoderSettings
 
     s = EncoderSettings.from_ini(path) if path else EncoderSettings()
     for k, v in overrides.items():

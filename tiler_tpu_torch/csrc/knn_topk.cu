@@ -21,6 +21,18 @@
 // top-2 for its 4 cells; the 16 threads that share a cell merge their
 // top-2s with warp shuffles. Tensor cores (mma/wgmma) and TMA are later
 // work.
+//
+// The same kernel, instantiated with kV1 = true, replaces the v1 Pallas
+// kernel tiler_tpu/kernels/knn_topk.py::knn_bucket_topk (the call at
+// :204, body _kernel :47, _sortable :41), which the knn_backend
+// "pallas_v1" setting selects. It multiplies the plain bf16 features
+// [Np, 192] by the transposed corpus [192, Tp] (12 K-chunks of 16) and
+// ranks on d = d2[t] - 2 <f, ds_t> in f32, without the |f|^2 term, so d
+// is often negative: the key takes the sortable image of the float bits,
+// u ^ ((u >> 31) & 0x7FFFFFFF), which orders as the floats do under a
+// signed int compare, before the lane goes into its low 9 bits. Its
+// bound is the same as B2's: 2 * 192 flops per (cell, tile) pair, ~0.45
+// TFLOP at 14,400 cells x 81,920 padded tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -28,7 +40,8 @@
 
 namespace {
 
-constexpr int kKDA = 208;  // folded contraction depth
+constexpr int kKDA = 208;  // folded contraction depth (B2)
+constexpr int kKD = 192;   // plain feature depth (v1)
 constexpr int kTB = 512;   // corpus tiles per bucket
 constexpr int kBM = 64;    // cells per block
 constexpr int kBN = 128;   // bucket columns per sub-tile
@@ -44,12 +57,18 @@ __device__ __forceinline__ void top2_insert(int key, int& m1, int& m2) {
   }
 }
 
+// kV1 = false: B2 on the folded operands, fa [Np, KDA] and dsTa [KDA,
+// Tp], key of max(d, 0). kV1 = true: v1 on fa [Np, KD] and dsTa [KD, Tp]
+// with d = d2[t] - 2 * dot and the sortable key (d2 is unused by B2).
+template <bool kV1>
 __global__ void __launch_bounds__(kThreads)
-knn_bucket_top2_kernel(const __nv_bfloat16* __restrict__ fa,    // [Np, KDA]
-                       const __nv_bfloat16* __restrict__ dsTa,  // [KDA, Tp]
+knn_bucket_top2_kernel(const __nv_bfloat16* __restrict__ fa,    // [Np, depth]
+                       const __nv_bfloat16* __restrict__ dsTa,  // [depth, Tp]
+                       const float* __restrict__ d2,            // [Tp] (v1)
                        int* __restrict__ k1,                    // [nb, Np]
                        int* __restrict__ k2,                    // [nb, Np]
                        int Np, int Tp) {
+  constexpr int kDepth = kV1 ? kKD : kKDA;
   __shared__ float As[kKC][kBM];
   __shared__ float Bs[kKC][kBN];
   const int cell0 = blockIdx.x * kBM;
@@ -69,10 +88,10 @@ knn_bucket_top2_kernel(const __nv_bfloat16* __restrict__ fa,    // [Np, KDA]
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-    for (int k0 = 0; k0 < kKDA; k0 += kKC) {
+    for (int k0 = 0; k0 < kDepth; k0 += kKC) {
       for (int e = threadIdx.x; e < kBM * kKC; e += kThreads) {
         const int r = e / kKC, k = e % kKC;
-        As[k][r] = __bfloat162float(fa[(size_t)(cell0 + r) * kKDA + k0 + k]);
+        As[k][r] = __bfloat162float(fa[(size_t)(cell0 + r) * kDepth + k0 + k]);
       }
       for (int e = threadIdx.x; e < kKC * kBN; e += kThreads) {
         const int k = e / kBN, c = e % kBN;
@@ -98,9 +117,16 @@ knn_bucket_top2_kernel(const __nv_bfloat16* __restrict__ fa,    // [Np, KDA]
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float d = fmaxf(acc[i][j], 0.f);
         const int lane = sub * kBN + tx + 16 * j;
-        top2_insert((__float_as_int(d) & ~0x1FF) | lane, m1[i], m2[i]);
+        int u;
+        if (kV1) {
+          // 2 * dot is exact, so this is the one f32 rounding of d2 - 2 dot
+          u = __float_as_int(d2[col0 + tx + 16 * j] - 2.f * acc[i][j]);
+          u ^= (u >> 31) & 0x7FFFFFFF;  // sortable: signed order = float order
+        } else {
+          u = __float_as_int(fmaxf(acc[i][j], 0.f));
+        }
+        top2_insert((u & ~0x1FF) | lane, m1[i], m2[i]);
       }
   }
 
@@ -134,8 +160,20 @@ extern "C" int knn_bucket_top2_launch(const void* fa, const void* dsTa,
   if (Np <= 0 || Tp <= 0) return 0;
   if (Np % kBM || Tp % kTB) return (int)cudaErrorInvalidValue;
   const dim3 grid(Np / kBM, Tp / kTB);
-  knn_bucket_top2_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)fa, (const __nv_bfloat16*)dsTa, (int*)k1,
-      (int*)k2, Np, Tp);
+  knn_bucket_top2_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)fa, (const __nv_bfloat16*)dsTa, nullptr,
+      (int*)k1, (int*)k2, Np, Tp);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int knn_bucket_top2_v1_launch(const void* fb, const void* dsT,
+                                         const void* d2, void* k1, void* k2,
+                                         int Np, int Tp, void* stream) {
+  if (Np <= 0 || Tp <= 0) return 0;
+  if (Np % kBM || Tp % kTB) return (int)cudaErrorInvalidValue;
+  const dim3 grid(Np / kBM, Tp / kTB);
+  knn_bucket_top2_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)fb, (const __nv_bfloat16*)dsT, (const float*)d2,
+      (int*)k1, (int*)k2, Np, Tp);
   return (int)cudaGetLastError();
 }

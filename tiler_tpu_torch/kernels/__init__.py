@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels for the H100 (sources in ``../csrc``), each
 beside its plain PyTorch version. Each wrapper counts the launches of its
 kernel in its ``launches`` attribute."""
-from .knn_topk import knn_bucket_top2
+from .blockify import blockify_field
+from .knn_topk import knn_bucket_top2, knn_bucket_top2_v1
 from .tk_dither import tk_select
 
-WRAPPERS = (tk_select, knn_bucket_top2)
+WRAPPERS = (tk_select, knn_bucket_top2, knn_bucket_top2_v1, blockify_field)
 
 
 def reset_launch_counts():

@@ -12,7 +12,7 @@ import copy
 import numpy as np
 import torch
 
-from tiler_tpu.models.state import EncodeState
+from .state import EncodeState
 
 # state fields the port keeps on its device, with their dtypes
 DEVICE_FIELDS = {

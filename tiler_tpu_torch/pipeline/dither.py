@@ -12,10 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tiler_tpu.config import EncoderSettings
-from tiler_tpu.models.state import EncodeState
-
+from ..config import EncoderSettings
 from ..kernels.tk_dither import pal_table, tk_select
+from ..models.state import EncodeState
 from .reindex import pal_hashes
 
 

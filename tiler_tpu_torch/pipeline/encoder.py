@@ -1,24 +1,25 @@
 """Encoder facade: runs the 8 pipeline steps on one device.
 
-Counterpart of ``tiler_tpu/pipeline/encoder.py`` with an explicit
-``device``. Checkpoints use the JAX package's format (a pickle of the
-numpy ``EncodeState`` and the settings), so a stage of either package can
-resume from the other's snapshot. ``pipeline/save.py`` is the JAX
-package's host writer, fed a numpy copy of the state.
+Counterpart of ``tiler_tpu/pipeline/encoder.py``; it runs on ``cuda``
+unless the caller names another device. Checkpoints use the JAX
+package's format, a pickle of the numpy ``EncodeState`` and the settings,
+written with the port's own classes; :meth:`Encoder.load_checkpoint` also
+reads the JAX package's checkpoints by mapping its class names onto the
+port's copies (:class:`_CheckpointUnpickler`), without importing it.
 """
 from __future__ import annotations
 
+import dataclasses
 import pickle
 import time
 from typing import Optional
 
 import torch
 
-from tiler_tpu.config import EncoderSettings
-from tiler_tpu.models.state import EncodeState
-from tiler_tpu.pipeline import save as save_mod
-
+from ..config import EncoderSettings
+from ..models import state as state_mod
 from ..models.convert import state_from_numpy, state_to_numpy
+from ..models.state import EncodeState
 from . import dither as dither_mod
 from . import load as load_mod
 from . import palettes as palettes_mod
@@ -26,16 +27,26 @@ from . import predict as predict_mod
 from . import reconstruct as reconstruct_mod
 from . import reduce as reduce_mod
 from . import reindex as reindex_mod
+from . import save as save_mod
+
+# the JAX package's pickled class names -> the port's copies
+_CHECKPOINT_CLASSES = {
+    ("tiler_tpu.config", "EncoderSettings"): EncoderSettings,
+    **{("tiler_tpu.models.state", name): getattr(state_mod, name)
+       for name in ("EncodeState", "KeyFrameInfo", "TileMapSoA")},
+}
+
 
 def check_settings(s: EncoderSettings):
     """Raise ValueError naming the first setting the port does not run."""
     rules = (
-        ("knn_backend", s.knn_backend in ("ivf", "pallas_v1"),
-         "the IVF and v1 top-k backends are not ported"),
+        ("knn_backend", s.knn_backend not in ("pallas", "pallas_v1", "xla"),
+         "only the 'pallas', 'pallas_v1' and 'xla' top-k backends are "
+         "ported (the IVF search is not)"),
         ("epu_two_stage", s.epu_two_stage, "the two-stage EPU is not ported"),
         ("epu_fused_fp", s.epu_fused_fp, "the fused EPU table is not ported"),
-        ("motion_field", s.motion_field != "passes",
-         "only the 'passes' window field is ported"),
+        ("motion_field", s.motion_field not in ("passes", "im2row"),
+         "only the 'passes' and 'im2row' window fields exist"),
         ("motion_rank_dims", s.motion_rank_dims != 192,
          "only full 192-dim motion ranking is ported"),
         ("int16_features", s.int16_features, "int16 features are not ported"),
@@ -69,11 +80,16 @@ class Encoder:
     """Drives an EncodeState through the pipeline steps on ``device``."""
 
     def __init__(self, settings: Optional[EncoderSettings] = None, log=print,
-                 device="cpu", mesh=None):
+                 device="cuda", mesh=None):
         if mesh is not None:
             raise ValueError("mesh: multi-device encoding is not ported to "
                              "tiler_tpu_torch")
-        self.settings = settings or EncoderSettings()
+        settings = settings or EncoderSettings()
+        if not isinstance(settings, EncoderSettings):
+            # an equal dataclass (the JAX package's): keep the port's own
+            # class, so checkpoints name only the port's classes
+            settings = EncoderSettings(**dataclasses.asdict(settings))
+        self.settings = settings
         check_settings(self.settings)
         self.device = torch.device(device)
         self.state = EncodeState()
@@ -93,7 +109,7 @@ class Encoder:
         return self
 
     def load_video(self, path: Optional[str] = None):
-        from tiler_tpu.io import video
+        from ..io import video
 
         s = self.settings
         path = path or s.input_file_name
@@ -179,11 +195,11 @@ class Encoder:
                          "settings": self.settings}, f)
 
     @classmethod
-    def load_checkpoint(cls, path: str, log=print, device="cpu") -> "Encoder":
+    def load_checkpoint(cls, path: str, log=print, device="cuda") -> "Encoder":
         """Resume from a checkpoint written by either package. Unpickling
         runs code named in the file: load only checkpoints you wrote."""
         with open(path, "rb") as f:
-            d = pickle.load(f)
+            d = _CheckpointUnpickler(f).load()
         enc = cls(d["settings"], log=log, device=device)
         enc.state = state_from_numpy(d["state"], enc.device)
         return enc
@@ -197,3 +213,18 @@ class Encoder:
         dt = time.monotonic() - t0
         self.timings[step] = dt
         self.log(f"[{step}] {dt:.3f}s")
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    """Reads the JAX package's class names as the port's copies of them;
+    any other name of that package is refused, so loading a checkpoint
+    never imports it."""
+
+    def find_class(self, module, name):
+        if (module, name) in _CHECKPOINT_CLASSES:
+            return _CHECKPOINT_CLASSES[module, name]
+        if module == "tiler_tpu" or module.startswith("tiler_tpu."):
+            raise pickle.UnpicklingError(
+                f"checkpoint names {module}.{name}, which tiler_tpu_torch "
+                f"has no copy of")
+        return super().find_class(module, name)

@@ -13,9 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tiler_tpu.config import EncoderSettings
-from tiler_tpu.models.state import EncodeState, KeyFrameInfo, TileMapSoA
-
+from ..config import EncoderSettings
+from ..models.state import EncodeState, KeyFrameInfo, TileMapSoA
 from ..ops.color import rgb_to_lab
 from ..ops.metrics import pearson
 from ..ops.tiles import canonicalize, pad_frame

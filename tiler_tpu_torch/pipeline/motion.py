@@ -1,12 +1,14 @@
 """Motion search: windowed weighted-DCT L2 search over a radius.
 
-Counterpart of ``tiler_tpu/pipeline/motion.py`` for the default
-``motion_field="passes"`` field at full 192-dim ranking:
+Counterpart of ``tiler_tpu/pipeline/motion.py`` at full 192-dim ranking:
 
-  1. The weighted DCT of every 8x8 window of the reference frame, built
-     directly in a padded block layout by two shifted elementwise passes
-     (:func:`_window_field_blocks`), centered by the mean tile feature and
-     rounded to bf16 for ranking.
+  1. The weighted DCT of every 8x8 window of the reference frame in a
+     padded block layout, centered by the mean tile feature and rounded
+     to bf16 for ranking. ``field_impl="passes"`` (the default) builds it
+     by two shifted elementwise passes (:func:`_window_field_blocks`);
+     ``"im2row"`` by one f32 product of the windows' pixels with the
+     weighted DCT basis and the blockify kernel
+     (:func:`_window_field_blocks_im2row`).
   2. |t - w|^2 = |t|^2 - 2 t.w + |w|^2 with offsets split o = 8q + s: one
      batched bf16 product of each field block against its 2Qx2Q
      neighbouring tiles, halo-blocked by row blocks.
@@ -21,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from ..kernels.blockify import blockify_field
 from ..ops.color import rgb_to_yuv
 from ..ops.dct import DCT_MAT, DCT_WEIGHTS
 
@@ -88,6 +91,14 @@ def _window_field_blocks(frame_rgb, mu, P: int, mh: int, mw: int):
     Fblk = torch.stack(mats, dim=2)  # [mh, mw, 8 sy, 8 sx, 3, 8, 8]
     Fblk = Fblk * w - mu.reshape(3, 8, 8)
     Fblk = Fblk.to(torch.bfloat16).reshape(mh, mw, 64, K)
+    return Fblk, _block_norms(Fblk, P, H, W)
+
+
+def _block_norms(Fblk, P: int, H: int, W: int):
+    """|F|^2 [mh, mw, 64] f32 of the bf16 field, +inf at the windows whose
+    top-left field position falls outside [0, H-7] x [0, W-7]."""
+    dev = Fblk.device
+    mh, mw = Fblk.shape[0], Fblk.shape[1]
     Ff = Fblk.float()
     n2 = (Ff * Ff).sum(dim=-1)
     fy = (torch.arange(mh, device=dev) * TILE_W)[:, None] + torch.arange(TILE_W, device=dev) - P
@@ -95,13 +106,57 @@ def _window_field_blocks(frame_rgb, mu, P: int, mh: int, mw: int):
     vy = (fy >= 0) & (fy <= H - TILE_W)
     vx = (fx >= 0) & (fx <= W - TILE_W)
     valid = (vy[:, None, :, None] & vx[None, :, None, :]).reshape(mh, mw, 64)
-    return Fblk, torch.where(valid, n2, torch.inf)
+    return torch.where(valid, n2, torch.inf)
 
 
-def motion_search(cur_rgb: torch.Tensor, prev_rgb: torch.Tensor, radius: int):
+@functools.lru_cache(maxsize=None)
+def _weighted_basis() -> np.ndarray:
+    """[3 c, 64 (y,x), 64 (v,u)] f32: the 2D-DCT basis times the PSNR-HVS
+    weights, accumulated in float64."""
+    D = np.asarray(DCT_MAT, np.float64)
+    basis = np.einsum("vy,ux->yxvu", D, D).reshape(64, 8, 8)
+    w = np.asarray(DCT_WEIGHTS, np.float64)  # [c, v, u]
+    return np.einsum("xvu,cvu->cxvu", basis, w).reshape(3, 64, 64).astype(np.float32)
+
+
+def _window_field_blocks_im2row(frame_rgb, mu, P: int, mh: int, mw: int):
+    """The same centered field as :func:`_window_field_blocks`, computed as
+    one product: the 64 pixels of every window plus a ones column (X, the
+    im2row stack) times the weighted DCT basis with -mu in its 65th row,
+    in f32 (TF32 is off), cast to bf16, then relaid out into the block
+    layout by the blockify kernel (``kernels/blockify.py``). Values match
+    the passes field to f32 summation-order rounding."""
+    dev = frame_rgb.device
+    yuv = rgb_to_yuv(frame_rgb.float())
+    H, W = yuv.shape[0], yuv.shape[1]
+    HP, WP = mh * TILE_W, mw * TILE_W
+    yuvp = torch.nn.functional.pad(
+        yuv, (0, 0, P, WP + 7 - W - P, P, HP + 7 - H - P)).permute(2, 0, 1)
+    # X: the JAX package's [HP, WP, 65, 3] stored as [3 c, 65, HP*WP], so
+    # each of the 65 rows (window pixel (y, x), then the ones) is written
+    # contiguously and the product is one batched matmul over the 3
+    # channels with X transposed in place
+    X = torch.empty(3, 65, HP, WP, device=dev)
+    for y in range(8):
+        for x in range(8):
+            X[:, 8 * y + x] = yuvp[:, y:y + HP, x:x + WP]
+    X[:, 64] = 1.0
+    B3 = torch.cat([torch.as_tensor(_weighted_basis(), device=dev),
+                    -mu.reshape(3, 1, 64)], dim=1)  # [3, 65, 64]
+    Fc = torch.matmul(X.view(3, 65, HP * WP).transpose(1, 2), B3)  # [3, HP*WP, 64]
+    del X  # ~0.8 GB f32 at 720p: gone before the relayouts
+    F = Fc.to(torch.bfloat16).permute(1, 0, 2).reshape(HP, WP, K)
+    del Fc
+    Fblk = blockify_field(F)  # [mh, mw, 64, K]
+    return Fblk, _block_norms(Fblk, P, H, W)
+
+
+def motion_search(cur_rgb: torch.Tensor, prev_rgb: torch.Tensor, radius: int,
+                  field_impl: str = "passes"):
     """Full-frame motion search of cur against prev ([H, W, 3], H and W
     multiples of 8). Returns (pred_y, pred_x) int32 [th, tw] and the exact
-    error f32 [th, tw] (squared weighted-DCT L2 + Manhattan penalty)."""
+    error f32 [th, tw] (squared weighted-DCT L2 + Manhattan penalty).
+    ``field_impl`` picks the window field: "passes" or "im2row"."""
     dev = cur_rgb.device
     H, W = cur_rgb.shape[0], cur_rgb.shape[1]
     th, tw = H // TILE_W, W // TILE_W
@@ -124,7 +179,12 @@ def motion_search(cur_rgb: torch.Tensor, prev_rgb: torch.Tensor, radius: int):
     pen = torch.as_tensor(make_penalty(R, P), device=dev)  # [64 s, NQ^2 q]
     tpad = torch.nn.functional.pad(
         Tc.to(torch.bfloat16), (0, 0, NQ - 1, mw - tw, NQ - 1, mh - th))
-    Fblk, N2blk = _window_field_blocks(prev_rgb, mu, P, mh, mw)
+    if field_impl == "im2row":
+        Fblk, N2blk = _window_field_blocks_im2row(prev_rgb, mu, P, mh, mw)
+    elif field_impl == "passes":
+        Fblk, N2blk = _window_field_blocks(prev_rgb, mu, P, mh, mw)
+    else:
+        raise ValueError(f"field_impl={field_impl!r}: 'passes' or 'im2row'")
 
     # halo-blocked rank: each row block builds only its own [BM, mw, NQ^2,
     # K] shift stack of tile features, one bf16 batched product per block

@@ -15,10 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tiler_tpu.config import EncoderSettings
-from tiler_tpu.models.state import EncodeState
-
 from ..cluster.kmeans import kmeans
+from ..config import EncoderSettings
+from ..models.state import EncodeState
 from ..ops import dct, prng
 
 RED_MUL, GREEN_MUL, BLUE_MUL, LUMA_DIV = 299, 587, 114, 1000

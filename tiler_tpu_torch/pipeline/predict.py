@@ -10,9 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from tiler_tpu.config import EncoderSettings
-from tiler_tpu.models.state import EncodeState
-
+from ..config import EncoderSettings
+from ..models.state import EncodeState
 from ..ops.metrics import euclidean_to_psnr
 from .motion import motion_search
 from .reduce import tile_hashes
@@ -27,7 +26,7 @@ def predict_motion(state: EncodeState, settings: EncoderSettings) -> EncodeState
     refs = [1] + list(range(F - 1))  # frame 0 predicts from frame 1
     oy, ox, psnr = [], [], []
     for f in range(F):
-        y, x, err = motion_search(frames[f], frames[refs[f]], R)
+        y, x, err = motion_search(frames[f], frames[refs[f]], R, settings.motion_field)
         oy.append(y.reshape(-1))
         ox.append(x.reshape(-1))
         psnr.append(euclidean_to_psnr(err).reshape(-1))

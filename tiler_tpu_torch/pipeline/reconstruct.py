@@ -3,9 +3,9 @@
 Counterpart of the default path of ``tiler_tpu/pipeline/reconstruct.py``:
 
   Phase A (independent per cell): each cell's top-k corpus tiles by
-    squared feature distance -- kernel B2 (``kernels/knn_topk.py``) on
-    the card when the corpus is wide enough, an exact bf16 top-k below
-    that -- then the EPU cartesian re-rank of (candidate tile, candidate
+    squared feature distance -- kernel B2 (``kernels/knn_topk.py``), or
+    the v1 kernel under ``knn_backend="pallas_v1"``, on the card when the
+    corpus is wide enough, an exact bf16 top-k below that -- then the EPU cartesian re-rank of (candidate tile, candidate
     palette) pairs and the exact fp32 error of the winner. Cells whose
     motion prediction is already perfect get only a cheap k=1 nearest
     tile. The cells run in rows of ``CELL_ROW``, the port's frame loop.
@@ -24,10 +24,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tiler_tpu.config import EncoderSettings
-from tiler_tpu.models.state import EncodeState
-
-from ..kernels.knn_topk import TB, TP_ALIGN, knn_bucket_topk2, knn_prep2
+from ..config import EncoderSettings
+from ..kernels.knn_topk import (TB, TP_ALIGN, knn_bucket_topk, knn_bucket_topk2,
+                                knn_prep2, knn_prep_v1)
+from ..models.state import EncodeState
 from ..ops.color import rgb_to_yuv
 from ..ops.dct import DCT_MAT, DCT_WEIGHTS
 from ..ops.metrics import euclidean_to_psnr
@@ -155,11 +155,15 @@ def _exact_choice_err(feats, tile, pal, pp, palettes):
     return (d * d).sum(dim=1)
 
 
-def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, use_kernel: bool):
+def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str):
     """Phase A for one row of cells: tiles [M, 8, 8, 3] uint8 ->
-    (tile int64 [M], pal int64 [M], exact err f32 [M])."""
+    (tile int64 [M], pal int64 [M], exact err f32 [M]). ``kernel`` is
+    "v2" (B2), "v1" or "" (the exact top-k)."""
     feats = tile_features_raster(tiles.float())
-    if use_kernel:
+    if kernel == "v1":
+        idx, _ = knn_bucket_topk(feats, ctx["dsT"], ctx["d2p"], kk)
+        ctx["kernel_cells"] += feats.shape[0]
+    elif kernel == "v2":
         idx, _ = knn_bucket_topk2(feats, ctx["dsTa"], kk)
         ctx["kernel_cells"] += feats.shape[0]
     else:
@@ -178,8 +182,8 @@ def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, use_kernel: bool):
 def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
     """Phase A: per-cell best (tile, palette, err) as [F, N] tensors;
     cells skipped as perfectly predicted get the cheap k=1 choice. Writes
-    the corpus size and the cells that went through kernel B2 to
-    ``stats``."""
+    the corpus size and the cells that went through a top-k kernel (B2
+    or v1) to ``stats``."""
     F, N = state.n_frames, state.tilemap_size
     dev = state.corpus_pal_pixels.device
     S = settings.palette_size
@@ -202,16 +206,23 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
     pal_k = min(settings.epu_pal_k or kk, kk)
     ntri3 = 3 * (S * (S + 1) // 2)
     per_cell = kk * (64 * S * 2 + ntri3 * 4) + pal_k * ntri3 * 4
-    use_kernel = (dev.type == "cuda" and kk > 1 and T >= 2 * kk * TB
-                  and settings.knn_backend == "pallas")
+    # the kernels need a card and a corpus much wider than kk buckets, so
+    # that the bucket top-2s cover the top-kk (the JAX package's gate)
+    kernel = ""
+    if (dev.type == "cuda" and kk > 1 and T >= 2 * kk * TB
+            and settings.knn_backend in ("pallas", "pallas_v1")):
+        kernel = "v1" if settings.knn_backend == "pallas_v1" else "v2"
     ctx = {
         "ds": ds, "pal_initial": pal_initial, "pp": pp, "palettes": palettes,
         "pal_yuv": rgb_to_yuv(palettes.float()), "S": S,
         "cell_chunk": max(64, min(4096, int(3e8 / per_cell))),
         "kernel_cells": 0,
     }
-    if use_kernel:
-        ctx["dsTa"] = knn_prep2(ds, -(-T // TP_ALIGN) * TP_ALIGN)
+    Tp = -(-T // TP_ALIGN) * TP_ALIGN
+    if kernel == "v1":
+        ctx["dsT"], ctx["d2p"] = knn_prep_v1(ds, Tp)
+    elif kernel == "v2":
+        ctx["dsTa"] = knn_prep2(ds, Tp)
     if epu:
         ctx["G"] = _indicator_dcts(pp, S).to(torch.bfloat16)
         ctx["Q"] = _tile_quad(ctx["G"], S)
@@ -237,8 +248,8 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
     kt = torch.zeros(F * N, dtype=torch.long, device=dev)
     kp = torch.zeros(F * N, dtype=torch.long, device=dev)
     ke = torch.full((F * N,), torch.inf, device=dev)
-    for cells, args in ((sel, (kk, pal_k, epu, use_kernel)),
-                        (sel_cheap, (1, 1, False, False))):
+    for cells, args in ((sel, (kk, pal_k, epu, kernel)),
+                        (sel_cheap, (1, 1, False, ""))):
         for r0 in range(0, len(cells), CELL_ROW):
             c = torch.as_tensor(cells[r0:r0 + CELL_ROW], device=dev)
             t, p, e = _knn_cells(tiles_flat[c], ctx, *args)

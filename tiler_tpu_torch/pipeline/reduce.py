@@ -13,8 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tiler_tpu.config import EncoderSettings
-from tiler_tpu.models.state import EncodeState
+from ..config import EncoderSettings
+from ..models.state import EncodeState
 
 _RNG = np.random.RandomState(0x5EED)
 _C1 = (_RNG.randint(0, 1 << 31, 192) * 2 + 1).astype(np.int32)

@@ -11,9 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tiler_tpu.config import EncoderSettings
-from tiler_tpu.models.state import EncodeState
-
+from ..config import EncoderSettings
+from ..models.state import EncodeState
 from .reduce import poly_hashes
 
 _RNG = np.random.RandomState(0x1DE7)
