@@ -10,10 +10,23 @@ and prints:
 - the wall time of the profiled encode and its per-stage seconds;
 - device time: the sum of all kernel and copy times, and the union of
   their intervals (busy time); idle share = 1 - busy / wall;
-- the kernels with the most self device time (name, calls, ms).
+- the kernels with the most self device time (name, calls, ms), then
+  the port's own kernels (csrc/) wherever they rank.
 The first line names the card and its power limit (nvidia-smi).
+
+    python3 scripts/torch_profile.py --knn-breakdown
+
+instead splits the corpus top-k kernels' time at one launch's shape
+(8,192 cells x the encode's 116,097-tile corpus): it builds two
+diagnostic copies of csrc/knn_topk.cu into build/knn_breakdown/, one
+whose epilogue only folds the accumulators into one sum (the product and
+the corpus stream alone) and one without the MMAs (the key packing and
+top-2 alone, on accumulators the compiler cannot see), and times them
+beside the kernel itself, in turns, by CUDA events.
 """
+import ctypes
 import os
+import re
 import subprocess
 import sys
 import time
@@ -31,6 +44,10 @@ PATHS = {
     "default": EncoderSettings(),
     "im2row_v1": EncoderSettings(motion_field="im2row", knn_backend="pallas_v1"),
 }
+
+
+# the device functions of tiler_tpu_torch/csrc
+OWN_KERNELS = ("knn_top2_wgmma", "tk_select_kernel", "blockify_kernel")
 
 
 def _device_us(evt) -> float:
@@ -77,10 +94,87 @@ def profile_path(name, settings, clip, top=12):
           + " ".join(f"{k}={v:.3f}" for k, v in enc.timings.items()), flush=True)
     print(f"[{name}] device time {total / 1e6:.3f} s summed, {busy / 1e6:.3f} s busy; "
           f"idle share {1 - busy / 1e6 / wall:.3f}", flush=True)
-    rows = sorted(prof.key_averages(), key=_device_us, reverse=True)[:top]
-    for r in rows:
+    rows = sorted(prof.key_averages(), key=_device_us, reverse=True)
+    # the top kernels, then the port's own kernels wherever they rank
+    own = [r for r in rows[top:] if any(k in r.key for k in OWN_KERNELS)]
+    for r in rows[:top] + own:
         print(f"[{name}]   {_device_us(r) / 1e3:10.3f} ms  {r.count:7d} calls  {r.key[:90]}",
               flush=True)
+
+
+def knn_breakdown(N=8192, T=116097, reps=20, rounds=2):
+    from tiler_tpu_torch.kernels import _build
+    from tiler_tpu_torch.kernels import knn_topk as kn
+
+    csrc = os.path.join(ROOT, "tiler_tpu_torch", "csrc")
+    out = os.path.join(ROOT, "build", "knn_breakdown")
+    os.makedirs(out, exist_ok=True)
+    src = open(os.path.join(csrc, "knn_topk.cu")).read()
+    for name in os.listdir(csrc):
+        if name.endswith((".cuh", ".h")):
+            with open(os.path.join(csrc, name)) as f, open(os.path.join(out, name), "w") as g:
+                g.write(f.read())
+    e0 = src.index("#pragma unroll\n      for (int j = 0; j < 16; ++j) {")
+    e1 = src.index("      if (t == kTilesPerBucket - 1) {")
+    fold = ("      {\n        float sum = 0.f;\n#pragma unroll\n"
+            "        for (int r = 0; r < 64; ++r) sum += acc0[r] + acc1[r];\n"
+            "        m1[0] = min(m1[0], __float_as_int(sum));\n      }\n")
+    variants = {"kernel": src, "product and stream": src[:e0] + fold + src[e1:],
+                "epilogue": re.sub(r".*wgmma_m64n128k16_bf16_tb\(acc.*\n", "", src)}
+    builds = {}
+    for i, text in enumerate(variants.values()):
+        cu = os.path.join(out, f"v{i}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        builds[i] = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                                      os.path.join(out, f"v{i}.so"), cu],
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    libs = {}
+    for (name, _), (i, proc) in zip(variants.items(), builds.items()):
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the {name} copy:\n{err}")
+        lib = ctypes.CDLL(os.path.join(out, f"v{i}.so"))
+        for fn, argtypes in _build._SIGNATURES:
+            if fn.startswith("knn"):
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+
+    dev = torch.device("cuda")
+    Tp = -(-T // kn.TP_ALIGN) * kn.TP_ALIGN
+    gen = torch.Generator(device=dev).manual_seed(2)
+    feats = torch.randn(N, 192, device=dev, generator=gen) * 50
+    ds = torch.randn(T, 192, device=dev, generator=gen) * 50
+    fa, dsTa = kn.fold_cells(feats, N), kn.knn_prep2(ds, Tp)
+    fb = feats.to(torch.bfloat16)
+    dsT, d2 = kn.knn_prep_v1(ds, Tp)
+    k1 = torch.empty(Tp // kn.TB, N, dtype=torch.int32, device=dev)
+    k2 = torch.empty_like(k1)
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {
+        "B2": lambda lib: lib.knn_bucket_top2_launch(
+            fa.data_ptr(), dsTa.data_ptr(), k1.data_ptr(), k2.data_ptr(), N, Tp, stream),
+        "v1": lambda lib: lib.knn_bucket_top2_v1_launch(
+            fb.data_ptr(), dsT.data_ptr(), d2.data_ptr(), k1.data_ptr(), k2.data_ptr(),
+            N, Tp, stream),
+    }
+    for rnd in range(rounds):
+        for kname, call in calls.items():
+            times = []
+            for name, lib in libs.items():
+                if call(lib) != 0:
+                    raise RuntimeError(f"{kname} {name}: launch refused")
+                torch.cuda.synchronize()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(reps):
+                    call(lib)
+                b.record()
+                torch.cuda.synchronize()
+                times.append(f"{name} {a.elapsed_time(b) / reps:.4f} ms")
+            print(f"[knn breakdown, round {rnd}] {kname} at {N} x {T}: " + ", ".join(times),
+                  flush=True)
 
 
 def main() -> int:
@@ -91,6 +185,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.splitlines()[0]
     print(f"card: {card}", flush=True)
+    if "--knn-breakdown" in sys.argv[1:]:
+        knn_breakdown()
+        return 0
     clip = synthetic_clip(32, 720, 1280)
     for name, settings in PATHS.items():
         profile_path(name, settings, clip)

@@ -95,6 +95,87 @@ def test_knn_v1_kernel_matches_plain(cuda):
         assert (a == b).float().mean() >= 0.95
 
 
+def _exact_knn_case(N, T, seed):
+    """Small integer features in [-4, 4]: every product, partial sum and
+    |f|^2 split (< 2^12, so hi + lo is exact in bf16) is an exact f32
+    integer, so any summation order gives the same bits. A third of the
+    cells copy corpus tiles and every seventh tile repeats the one before,
+    so B2's zero distances tie and must go to the lowest lane."""
+    rng = np.random.default_rng(seed)
+    ds = rng.integers(-4, 5, (T, 192)).astype(np.float32)
+    ds[1::7] = ds[0::7][:len(ds[1::7])]
+    feats = rng.integers(-4, 5, (N, 192)).astype(np.float32)
+    feats[:N // 3] = ds[rng.integers(0, T, N // 3)]
+    return torch.from_numpy(feats), torch.from_numpy(ds)
+
+
+# (N cells, T tiles, padded Tp): several cell blocks over 16 buckets; one
+# bucket; an odd bucket count; Np of one cell block. Every bucket holds at
+# least two real tiles, so the padded columns (whose 1e30 norm rounds
+# with the order of the sum) never reach a top-2.
+KNN_SHAPES = [(1000, 8000, 8192), (200, 512, 512), (700, 4600, 4608),
+              (t_knn.CELL_BLOCK, 4608, 4608)]
+
+
+def _v1_operands(feats, ds, Tp):
+    Np = -(-feats.shape[0] // t_knn.CELL_BLOCK) * t_knn.CELL_BLOCK
+    fb = torch.nn.functional.pad(feats.to(torch.bfloat16), (0, 0, 0, Np - feats.shape[0]))
+    return (fb, *t_knn.knn_prep_v1(ds, Tp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T,Tp", KNN_SHAPES)
+def test_knn_kernel_exact(cuda, N, T, Tp):
+    feats, ds = _exact_knn_case(N, T, N + T)
+    fa = t_knn.fold_cells(feats, -(-N // t_knn.CELL_BLOCK) * t_knn.CELL_BLOCK)
+    dsTa = t_knn.knn_prep2(ds, Tp)
+    want = t_knn.knn_bucket_top2_plain(fa, dsTa)
+    got = t_knn.knn_bucket_top2(fa.to(cuda), dsTa.to(cuda))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    # each copied cell finds a zero distance (tied where its tile repeats)
+    assert bool(((want[0][:, :N // 3] & ~0x1FF) == 0).any(dim=0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T,Tp", KNN_SHAPES)
+def test_knn_v1_kernel_exact(cuda, N, T, Tp):
+    fb, dsT, d2 = _v1_operands(*_exact_knn_case(N, T, N + T + 1), Tp)
+    want = t_knn.knn_bucket_top2_v1_plain(fb, dsT, d2)
+    got = t_knn.knn_bucket_top2_v1(fb.to(cuda), dsT.to(cuda), d2.to(cuda))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v1", [False, True])
+@pytest.mark.parametrize("N,T,Tp", KNN_SHAPES[1:])
+def test_knn_kernels_ragged_shapes(cuda, v1, N, T, Tp):
+    """Random features at the ragged shapes, to today's tolerance: keys
+    within 2^-12 relative and >= 95% identical."""
+    gen = torch.Generator().manual_seed(N + T)
+    feats = torch.randn(N, 192, generator=gen) * 50
+    ds = torch.randn(T, 192, generator=gen) * 50
+    if v1:
+        args = _v1_operands(feats, ds, Tp)
+        plain, kernel = t_knn.knn_bucket_top2_v1_plain, t_knn.knn_bucket_top2_v1
+        decode = lambda key: t_knn.sortable(key & ~0x1FF).view(torch.float32)  # noqa: E731
+    else:
+        args = (t_knn.fold_cells(feats, -(-N // t_knn.CELL_BLOCK) * t_knn.CELL_BLOCK),
+                t_knn.knn_prep2(ds, Tp))
+        plain, kernel = t_knn.knn_bucket_top2_plain, t_knn.knn_bucket_top2
+        decode = lambda key: (key & ~0x1FF).view(torch.float32)  # noqa: E731
+    want = plain(*args)
+    got = kernel(*(a.to(cuda) for a in args))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        a = a.cpu()
+        assert torch.allclose(decode(a), decode(b), rtol=2.0 ** -12)
+        assert (a == b).float().mean() >= 0.95
+
+
 @pytest.mark.cuda
 def test_im2row_motion_on_the_card_matches_the_cpu(cuda):
     """The im2row field and motion search on the card (cuBLAS f32 product,

@@ -139,7 +139,7 @@ def test_knn_prep_and_fold_layout():
 
 
 def test_knn_wrapper_rejects_bad_arguments():
-    fa = torch.zeros(64, t_knn.KDA, dtype=torch.bfloat16)
+    fa = torch.zeros(t_knn.CELL_BLOCK, t_knn.KDA, dtype=torch.bfloat16)
     dsTa = torch.zeros(t_knn.KDA, 512, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple"):
         t_knn.knn_bucket_top2(fa[:10], dsTa)
@@ -153,9 +153,9 @@ def test_plain_versions_count_no_launches():
     reset_launch_counts()
     tiles, pidx, pal, valid, hm, vm = _tk_case(T=4, P=2, S=4)
     t_tk.tk_select(*_tk_port(tiles, pidx, pal, valid, hm, vm))
-    t_knn.knn_bucket_top2(torch.zeros(64, t_knn.KDA, dtype=torch.bfloat16),
+    t_knn.knn_bucket_top2(torch.zeros(t_knn.CELL_BLOCK, t_knn.KDA, dtype=torch.bfloat16),
                           torch.zeros(t_knn.KDA, 512, dtype=torch.bfloat16))
-    t_knn.knn_bucket_top2_v1(torch.zeros(64, t_knn.KD, dtype=torch.bfloat16),
+    t_knn.knn_bucket_top2_v1(torch.zeros(t_knn.CELL_BLOCK, t_knn.KD, dtype=torch.bfloat16),
                              torch.zeros(t_knn.KD, 512, dtype=torch.bfloat16),
                              torch.zeros(512))
     t_blk.blockify_field(torch.zeros(16, 16, 8, dtype=torch.bfloat16))

@@ -2,9 +2,10 @@
 
 The sources are compiled on first use with ``nvcc`` into one shared
 library with a plain C interface, loaded with ctypes. The library lands
-in ``build/torch_kernels/`` of the checkout, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing here runs at import: the CPU tests import every module on
+in ``build/torch_kernels/`` of the checkout, named by a hash of every
+file the build reads (the ``*.cu`` it compiles and the ``*.cuh``/``*.h``
+they include) and of the flags, so an edited source or header rebuilds
+and an unchanged tree is reused. Nothing here runs at import: the CPU tests import every module on
 machines with neither ``nvcc`` nor a card.
 
 Each C entry point launches on the stream it is given, allocates
@@ -53,14 +54,21 @@ def _nvcc() -> str:
 
 
 def _sources():
+    """The translation units nvcc compiles."""
     return sorted(_CSRC.glob("*.cu"))
+
+
+def _inputs():
+    """Every file the build reads: the sources and the headers they include."""
+    return sorted(p for pat in ("*.cu", "*.cuh", "*.h") for p in _CSRC.glob(pat))
 
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for src in _inputs():
+        data = src.read_bytes()
+        h.update(f"{src.name}:{len(data)}:".encode())
+        h.update(data)
     h.update(" ".join(NVCC_FLAGS).encode())
     return _OUT / f"libtiler_kernels_{h.hexdigest()[:16]}.so"
 

@@ -6,8 +6,9 @@ knn_bucket_topk2`` (the call at :149, body ``_kernel2`` :73-99, prep
 ``knn_prep2`` :109-123, ``_split_bf16`` :102-106); v1 replaces
 ``knn_bucket_topk`` (the call at :204, body ``_kernel`` :47-67,
 ``_sortable`` :41-44), selected by ``knn_backend="pallas_v1"``. Both are
-one template in ``csrc/knn_topk.cu``, whose header says what bounds them
-on the card and how the design answers that.
+one template in ``csrc/knn_topk.cu`` (bf16 ``wgmma`` on the tensor cores,
+TMA-fed, 256 cells a block), whose header says what bounds them on the
+card and how the design answers that.
 
 The folded bf16 operands make one product carry the whole squared
 distance (see :func:`knn_prep2` and :func:`fold_cells`); per cell and
@@ -34,7 +35,7 @@ from . import _build
 TB = 512  # corpus tiles per bucket (recall and tie order depend on it)
 KD = 192  # feature dims
 KDA = 208  # folded depth: 192 features + 4 fold terms + zero pad
-CELL_BLOCK = 64  # cells per kernel block (the wrapper pads to it)
+CELL_BLOCK = 256  # cells per kernel block (the wrapper pads to it)
 TP_ALIGN = 4096  # corpus padding granularity, as in the JAX package
 INT_MAX = 2**31 - 1
 
