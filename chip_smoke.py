@@ -10,7 +10,13 @@ Run from the repository root:  python3 chip_smoke.py
    T = 116,097 tiles, P=1024, S=16, k=64, cells in rows of 8,192), and
    times both (and the one PyTorch call that computes the same function,
    where there is one):
-   - tk_select: the whole corpus in one launch, bit-identical;
+   - tk_select: the whole corpus in one launch, bit-identical, on random
+     tiles and on adversarial ones at the same size (worst-case error
+     growth, duplicate colors, equal lumas, one or no valid slot), on the
+     wide instantiation (S = 17, 32) and S = 1, and its two fp32
+     truncations against the integer divisions over their whole ranges;
+     prints ptxas's registers and spill, the table's bound and the
+     issue-rate floors at the SM clock nvidia-smi reports;
    - knn_bucket_top2 (B2) and knn_bucket_top2_v1: 8,192 cells x the
      corpus, keys within 2^-12 relative (f32 sums in another order) and
      >= 95% identical, plus the recall of the merged top-64 against an
@@ -27,12 +33,14 @@ Run from the repository root:  python3 chip_smoke.py
    knn_bucket_top2_v1 and tk_select must run). On each the corpus must
    reach the top-k kernels' gate (T >= 65,536) and the stream must decode
    to 32 frames whose first frame re-renders exactly from the encoder
-   state. Both encodes must see T = 116,097 and launch the kernels as
+   state. A third path, dithering_use_thomas_knoll=False (Yliluoma2, plain
+   tensor passes), must launch tk_select 0 times and B2 57 times. The first
+   two encodes must see T = 116,097 and launch the kernels as
    many times as before (default: tk_select 1, B2 57; im2row_v1:
    tk_select 1, v1 57, blockify 32), and land within 0.1 dB PSNR-HVS and
    2% bytes of the encodes measured with the earlier FMA top-k kernels
    (REF_ENCODES). Each encode then runs once more for times without start-up
-   costs, and must write a stream of the same size. A third encode,
+   costs, and must write a stream of the same size. One more encode,
    knn_backend="pallas_v1" with the passes field, isolates the field: the
    im2row path must land within 0.1 dB PSNR-HVS and 2% bytes of it, and
    no more than 0.1 dB below the default path (v1 and B2 rank
@@ -40,8 +48,14 @@ Run from the repository root:  python3 chip_smoke.py
 5. Runs both top-k kernels and their plain versions on the encode's own
    corpus and cells: each kernel's recall of the exact top-64 must equal
    its plain version's within 0.005.
-6. Encodes a small clip on the card and on the CPU (plain versions):
-   RGB-PSNR within 0.1 dB and bytes within 2%.
+6. Encodes a small clip on the card and on the CPU (plain versions), with
+   both ditherers: RGB-PSNR within 0.1 dB and bytes within 2%; the
+   Yliluoma2 dither of one state on the card and on the CPU is
+   bit-identical.
+7. Writes a planar 4:2:0 y4m of a CIF clip and encodes it through
+   Encoder.load_video on the card: at scaling=1 the ingested frames are
+   bit-identical to the host's y4m ingest; at scaling=2 they have the
+   doubled size and reach 40 dB PSNR against the host's PIL Lanczos.
 
 Prints per-stage times, then a JSON line of the kernels, the card line,
 and last {"ok": true, "device": {...}}. Exits nonzero on any failure.
@@ -78,7 +92,14 @@ REF_ENCODES = {"default": (23.9470, 2271203), "im2row_v1": (24.2840, 2327635)}
 # rows of 8,192, one dither, one motion search per frame
 EXPECT_LAUNCHES = {"default": {"tk_select": 1, "knn_bucket_top2": 57},
                    "im2row_v1": {"tk_select": 1, "knn_bucket_top2_v1": 57,
-                                 "blockify_field": 32}}
+                                 "blockify_field": 32},
+                   "yliluoma2": {"tk_select": 0, "knn_bucket_top2": 57}}
+# tk_select's scan, per (pixel, step, color), in csrc/tk_dither.cu's design:
+# 10.5 issue slots (an SM issues 128 thread instructions a clock), of which
+# 3.5 instructions give an int32 result (64 a clock an SM)
+TK_ISSUE_SLOTS = 10.5
+TK_INT32_RESULTS = 3.5
+SM_COUNT = 132
 
 
 def card_line() -> str:
@@ -123,7 +144,26 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
+def sm_clock_hz() -> float:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return 1e6 * float(res.stdout.strip().splitlines()[0])
+
+
+def _tk_same(torch, tk, args, what):
+    got = tk.tk_select(*args)
+    want = tk.tk_select_plain(*args)
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    if bad:
+        raise AssertionError(f"tk_select differs from its plain version on {what} "
+                             f"({bad} pixels)")
+    return int((got.int() - want.int()).abs().max())
+
+
 def check_tk(torch, dev, T=CORPUS_T, P=1024, S=16):
+    from tiler_tpu_torch.kernels import _build
     from tiler_tpu_torch.kernels import tk_dither as tk
 
     rng = np.random.default_rng(1)
@@ -133,22 +173,53 @@ def check_tk(torch, dev, T=CORPUS_T, P=1024, S=16):
     pal = torch.as_tensor(rng.integers(0, 256, (P, S, 3), dtype=np.int32), device=dev)
     valid = torch.as_tensor(rng.random((P, S)) < 0.9, device=dev)
     table = tk.pal_table(pal, valid)
-    got = tk.tk_select(pix, mirror, pidx, table)
-    want = tk.tk_select_plain(pix, mirror, pidx, table)
-    torch.cuda.synchronize()
-    err = int((got.int() - want.int()).abs().max())
-    if err != 0:
-        raise AssertionError(f"tk_select differs from its plain version ({err})")
+    err = _tk_same(torch, tk, (pix, mirror, pidx, table), "random tiles")
+    # the adversarial tiles at the launch's size, then the wide
+    # instantiation and a one-color palette at a smaller one
+    for s_adv, reps in ((S, -(-T // 40)), (17, 50), (32, 50), (1, 50)):
+        case = tk.adversarial_case(s_adv, seed=s_adv, reps=reps)
+        args = [torch.as_tensor(a, device=dev) for a in case[:3]]
+        args.append(tk.pal_table(torch.as_tensor(case[3], device=dev),
+                                 torch.as_tensor(case[4], device=dev)))
+        _tk_same(torch, tk, args, f"the adversarial tiles, S={s_adv}")
+        print(f"tk_select: {len(case[0])} adversarial tiles S={s_adv}: bit-identical",
+              flush=True)
+    # the two truncations the kernel does in fp32, over their whole ranges
+    lo, count = -2_100_000, 4_200_001
+    n = torch.arange(lo, lo + count, device=dev)
+    if not torch.equal(tk.trunc_probe(lo, count, 0, dev).long(),
+                       torch.div(n.abs(), 1000, rounding_mode="floor")):
+        raise AssertionError("tk_select's floor(|n| / 1000) is not the integer division")
+    lo, count = -20_000, 40_001
+    n = torch.arange(lo, lo + count, device=dev)
+    if not torch.equal(tk.trunc_probe(lo, count, 1, dev).long(),
+                       torch.div(n * 9, 100, rounding_mode="trunc")):
+        raise AssertionError("tk_select's trunc(n * 9 / 100) is not the integer division")
     ms = cuda_ms(lambda: tk.tk_select(pix, mirror, pidx, table), 20)
+    clock = sm_clock_hz()  # read while the card is still clocked up
     plain_ms = cuda_ms(lambda: tk.tk_select_plain(pix, mirror, pidx, table), 3)
     # bytes: each input once (the palette table whole), the slots out;
     # operations: ~14 integer ops per (pixel, step, candidate colour)
     n_bytes = pix.numel() + mirror.numel() + 4 * pidx.numel() + 4 * table.numel() + T * 64
-    bms, by = bound_ms(n_bytes, 14.0 * T * 64 * tk.STEPS * S, FP32_OPS)
+    triples = float(T) * 64 * tk.STEPS * S
+    bms, by = bound_ms(n_bytes, 14.0 * triples, FP32_OPS)
+    issue_ms = 1e3 * TK_ISSUE_SLOTS * triples / (128 * SM_COUNT * clock)
+    int32_ms = 1e3 * TK_INT32_RESULTS * triples / (64 * SM_COUNT * clock)
+    used = [r for r in _build.kernel_resources("tk_select_kernel") if "Li16E" in r["function"]]
+    res = used[0] if used else None
     print(f"tk_select: {T} tiles P={P} S={S}: bit-identical; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})", flush=True)
+          f"plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}); at the SM clock "
+          f"{clock / 1e6:.0f} MHz the scan's {TK_ISSUE_SLOTS} issue slots a triple take "
+          f"{issue_ms:.3f} ms and its {TK_INT32_RESULTS} int32 results {int32_ms:.3f} ms; "
+          + (f"ptxas: {res['registers']} registers, {res['spill_store_bytes']} / "
+             f"{res['spill_load_bytes']} bytes of spill stores / loads, "
+             f"{res['stack_bytes']} bytes of stack" if res else "ptxas: not built here"),
+          flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None}
+            "bound_by": by, "library_ms": None, "issue_floor_ms": issue_ms,
+            "int32_floor_ms": int32_ms, "sm_clock_mhz": clock / 1e6,
+            "registers": res and res["registers"],
+            "spill_bytes": res and res["spill_store_bytes"] + res["spill_load_bytes"]}
 
 
 def _key_agreement(torch, pairs, N, decode):
@@ -357,15 +428,18 @@ def encode_path(name, settings, kernels, F=32, H=720, W=1280, min_corpus=65536,
 
 
 def check_against_reference(name, run):
-    """The encode against REF_ENCODES (0.1 dB PSNR-HVS, 2% bytes), with the
-    corpus size and the launches of EXPECT_LAUNCHES."""
-    ref_db, ref_bytes = REF_ENCODES[name]
-    d_db = run["psnr_hvs_db"] - ref_db
-    d_bytes = (run["bytes"] - ref_bytes) / ref_bytes
-    print(f"[{name}] against the reference encode ({ref_db} dB, {ref_bytes} bytes): "
-          f"PSNR-HVS {d_db:+.4f} dB, bytes {d_bytes:+.4%}", flush=True)
-    if abs(d_db) > 0.1 or abs(d_bytes) > 0.02:
-        raise AssertionError(f"the {name} encode left the reference's 0.1 dB / 2% envelope")
+    """The encode against REF_ENCODES where it has a figure there (0.1 dB
+    PSNR-HVS, 2% bytes), with the corpus size and the launches of
+    EXPECT_LAUNCHES."""
+    if name in REF_ENCODES:
+        ref_db, ref_bytes = REF_ENCODES[name]
+        d_db = run["psnr_hvs_db"] - ref_db
+        d_bytes = (run["bytes"] - ref_bytes) / ref_bytes
+        print(f"[{name}] against the reference encode ({ref_db} dB, {ref_bytes} bytes): "
+              f"PSNR-HVS {d_db:+.4f} dB, bytes {d_bytes:+.4%}", flush=True)
+        if abs(d_db) > 0.1 or abs(d_bytes) > 0.02:
+            raise AssertionError(f"the {name} encode left the reference's 0.1 dB / 2% "
+                                 "envelope")
     if run["corpus_tiles"] != CORPUS_T:
         raise AssertionError(f"the {name} corpus has {run['corpus_tiles']} tiles, "
                              f"not {CORPUS_T}")
@@ -447,7 +521,10 @@ def knn_on_encode_data(frames=(0, 16), k=64, F=32, H=720, W=1280, device="cuda")
     return out
 
 
-def small_clip_agreement():
+SMALL = dict(palette_count=8, motion_predict_radius=4, epu_knn_k=8, kmeans_iters=4)
+
+
+def small_clip_agreement(**overrides):
     """The same small encode on the card and on the CPU (plain kernel
     versions): the end-to-end gate of docs/DETERMINISM.md."""
     from tiler_tpu_torch.bitstream.gtm import GTMDecoder
@@ -456,22 +533,113 @@ def small_clip_agreement():
     from tiler_tpu_torch.utils.clips import synthetic_clip
 
     clip = synthetic_clip(6, 64, 96)
+    os.makedirs(STREAM_DIR, exist_ok=True)
     out = {}
     for dev in ("cuda", "cpu"):
         path = os.path.join(STREAM_DIR, f"small_{dev}.gtm")
-        enc = Encoder(EncoderSettings(palette_count=8, motion_predict_radius=4,
-                                      epu_knn_k=8, kmeans_iters=4), device=dev, log=None)
+        enc = Encoder(EncoderSettings(**SMALL, **overrides), device=dev, log=None)
         enc.run_all(clip, fps=25.0, out_path=path)
         frames = np.stack(GTMDecoder(path).decode_frames())[..., :3]
         mse = float(np.mean((frames.astype(np.float64) - clip) ** 2))
         out[dev] = (10 * np.log10(255 * 255 / max(mse, 1e-9)), enc.stats.total_bytes)
     d_db = abs(out["cuda"][0] - out["cpu"][0])
     d_bytes = abs(out["cuda"][1] - out["cpu"][1]) / out["cpu"][1]
-    print(f"small clip cuda vs cpu: {out}; |dPSNR| {d_db:.4f} dB, |dbytes| {d_bytes:.4%}",
-          flush=True)
+    print(f"small clip {overrides or 'defaults'} cuda vs cpu: {out}; |dPSNR| {d_db:.4f} dB, "
+          f"|dbytes| {d_bytes:.4%}", flush=True)
     if d_db > 0.1 or d_bytes > 0.02:
         raise AssertionError("small-clip encode on the card disagrees with the CPU")
     return {"cuda": out["cuda"], "cpu": out["cpu"], "d_db": d_db, "d_bytes": d_bytes}
+
+
+def yliluoma2_dither_agreement():
+    """One state (the small clip up to its palettes, made on the CPU)
+    dithered with Yliluoma2 on the card and on the CPU: all int32, so the
+    palette pixels must be bit-identical."""
+    import copy
+
+    import torch
+
+    from tiler_tpu_torch.config import EncoderSettings
+    from tiler_tpu_torch.models.convert import state_from_numpy, state_to_numpy
+    from tiler_tpu_torch.pipeline import dither
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.utils.clips import synthetic_clip
+
+    settings = EncoderSettings(**SMALL, dithering_use_thomas_knoll=False)
+    enc = Encoder(settings, device="cpu", log=None)
+    enc.load_frames(synthetic_clip(6, 64, 96), 25.0)
+    enc.predict_motion().reduce().prepare_palettes()
+    snap = state_to_numpy(copy.copy(enc.state))
+    got = {dev: dither.dither(state_from_numpy(copy.copy(snap), dev), settings)
+           .corpus_pal_pixels.cpu() for dev in ("cuda", "cpu")}
+    if not torch.equal(got["cuda"], got["cpu"]):
+        raise AssertionError("the Yliluoma2 dither on the card differs from the CPU's")
+    print(f"Yliluoma2 dither of {len(got['cpu'])} tiles: card and CPU bit-identical",
+          flush=True)
+
+
+def write_y4m_420(path, frames, fps):
+    """A planar 4:2:0 y4m (BT.601 full range, chroma averaged over 2x2)."""
+    H, W = frames[0].shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"YUV4MPEG2 W{W} H{H} F{round(fps * 1000)}:1000 Ip A1:1 C420jpeg\n".encode())
+        for fr in frames:
+            rgb = fr.astype(np.float32)
+            y = rgb[..., 0] * 0.299 + rgb[..., 1] * 0.587 + rgb[..., 2] * 0.114
+            u = ((rgb[..., 2] - y) * 0.492 + 128).reshape(H // 2, 2, W // 2, 2).mean((1, 3))
+            v = ((rgb[..., 0] - y) * 0.877 + 128).reshape(H // 2, 2, W // 2, 2).mean((1, 3))
+            f.write(b"FRAME\n" + b"".join(
+                np.clip(np.round(p), 0, 255).astype(np.uint8).tobytes() for p in (y, u, v)))
+
+
+def y4m_device_ingest(F=8, H=288, W=352):
+    """A CIF y4m (planar 4:2:0) through Encoder.load_video and the whole
+    encode on the card: its planes go up at source size and the card
+    converts them (scaling=1: the frames must be the host ingest's, bit
+    for bit) and resamples them (scaling=2: 704x576, against the host's
+    PIL Lanczos)."""
+    from tiler_tpu_torch.bitstream.gtm import GTMDecoder
+    from tiler_tpu_torch.config import EncoderSettings
+    from tiler_tpu_torch.io import video
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.utils.clips import synthetic_clip
+
+    os.makedirs(STREAM_DIR, exist_ok=True)
+    src = os.path.join(STREAM_DIR, "cif420.y4m")
+    write_y4m_420(src, list(synthetic_clip(F, H, W)), 25.0)
+    out = {}
+    for scaling in (1.0, 2.0):
+        stream = os.path.join(STREAM_DIR, f"cif_x{scaling:g}.gtm")
+        enc = Encoder(EncoderSettings(input_file_name=src, output_file_name=stream,
+                                      scaling=scaling, palette_count=64),
+                      device="cuda", log=None)
+        t0 = time.monotonic()
+        enc.run_all()
+        wall = time.monotonic() - t0
+        host = video.load_video(src, scaling=scaling)[0]
+        th, tw = host.shape[1:3]
+        got = enc.state.frames_rgb.cpu().numpy()[:, :th, :tw]
+        if (enc.state.height, enc.state.width) != (-(-th // 8) * 8, -(-tw // 8) * 8):
+            raise AssertionError(f"scaling={scaling}: ingested {enc.state.width}x"
+                                 f"{enc.state.height}, the host {tw}x{th}")
+        mse = float(np.mean((got.astype(np.float64) - host) ** 2))
+        db = 10 * np.log10(255 * 255 / mse) if mse else float("inf")
+        if scaling == 1.0 and not np.array_equal(got, host):
+            raise AssertionError("the planar ingest at scaling=1 differs from the host's")
+        if db < 40.0:
+            raise AssertionError(f"scaling={scaling}: {db:.2f} dB against the host's resize")
+        frames = GTMDecoder(stream).decode_frames()
+        if len(frames) != F or frames[0].shape[:2] != (enc.state.height, enc.state.width):
+            raise AssertionError(f"scaling={scaling}: decoded {len(frames)} frames of "
+                                 f"{frames[0].shape}")
+        print(f"[y4m x{scaling:g}] {W}x{H}x{F} planar 4:2:0 -> {enc.state.width}x"
+              f"{enc.state.height}: ingest "
+              + ("bit-identical to the host's" if mse == 0 else f"{db:.2f} dB from the host's")
+              + f"; encode {wall:.3f} s, load {enc.timings['load']:.3f} s, "
+              f"{enc.stats.total_bytes} bytes, PSNR-HVS {enc.state.total_psnr:.4f} dB",
+              flush=True)
+        out[scaling] = {"wall_s": wall, "bytes": enc.stats.total_bytes, "ingest_db": db}
+    return out
 
 
 def main() -> int:
@@ -520,11 +688,22 @@ def main() -> int:
     # stream, but must not lose quality
     if im2row_v1["psnr_hvs_db"] < default["psnr_hvs_db"] - 0.1:
         raise AssertionError("the im2row / pallas_v1 encode lost quality against the default")
-    for name, run in (("default", default), ("im2row_v1", im2row_v1)):
+    torch.cuda.empty_cache()
+    # the other ditherer: plain tensor passes, no tk_select launch
+    yliluoma2 = encode_path("yliluoma2", EncoderSettings(dithering_use_thomas_knoll=False),
+                            ("knn_bucket_top2",))
+    print(f"yliluoma2 - default: PSNR-HVS "
+          f"{yliluoma2['psnr_hvs_db'] - default['psnr_hvs_db']:+.4f} dB, bytes "
+          f"{(yliluoma2['bytes'] - default['bytes']) / default['bytes']:+.4%}", flush=True)
+    for name, run in (("default", default), ("im2row_v1", im2row_v1),
+                      ("yliluoma2", yliluoma2)):
         check_against_reference(name, run)
     torch.cuda.empty_cache()
     knn_on_encode_data()
     small_clip_agreement()
+    small_clip_agreement(dithering_use_thomas_knoll=False)
+    yliluoma2_dither_agreement()
+    y4m_device_ingest()
 
     # each kernel's launches: from the encode of the path that it serves
     # (tk_select serves both; its count is the default path's)
@@ -538,7 +717,12 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": f"tiler_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": path_of[name]["launches"][name],
          **{key: checks[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms")}}
+                                               "bound_by", "library_ms")},
+         # tk_select also: its issue-rate floors, the clock they were taken
+         # at, and ptxas's registers and spill
+         **{key: checks[name][key] for key in ("issue_floor_ms", "int32_floor_ms",
+                                               "sm_clock_mhz", "registers", "spill_bytes")
+            if key in checks[name]}}
         for name, (src, replaces) in sources.items()]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

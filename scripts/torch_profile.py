@@ -23,6 +23,14 @@ whose epilogue only folds the accumulators into one sum (the product and
 the corpus stream alone) and one without the MMAs (the key packing and
 top-2 alone, on accumulators the compiler cannot see), and times them
 beside the kernel itself, in turns, by CUDA events.
+
+    python3 scripts/torch_profile.py --encode-times [--root DIR]
+
+instead encodes the clip three times on each path without the profiler
+and prints every encode's wall time and per-stage seconds (the first
+pays the start-up costs). --root DIR imports tiler_tpu_torch from another
+checkout (an unpacked parent commit, say), so that two commits can be
+timed in turns within one call on one card.
 """
 import ctypes
 import os
@@ -32,6 +40,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if "--root" in sys.argv[1:]:
+    ROOT = os.path.abspath(sys.argv[sys.argv.index("--root") + 1])
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
@@ -126,7 +136,7 @@ def knn_breakdown(N=8192, T=116097, reps=20, rounds=2):
         cu = os.path.join(out, f"v{i}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        builds[i] = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+        builds[i] = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
                                       os.path.join(out, f"v{i}.so"), cu],
                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     libs = {}
@@ -177,6 +187,21 @@ def knn_breakdown(N=8192, T=116097, reps=20, rounds=2):
                   flush=True)
 
 
+def encode_times(clip, reps=3):
+    out = os.path.join(ROOT, "build", "torch_profile")
+    os.makedirs(out, exist_ok=True)
+    for name, settings in PATHS.items():
+        for r in range(reps):
+            enc = Encoder(settings, device="cuda", log=None)
+            t0 = time.monotonic()
+            enc.run_all(clip, fps=25.0, out_path=os.path.join(out, f"{name}.gtm"))
+            wall = time.monotonic() - t0
+            print(f"[{name}] encode {r} of {ROOT}: {wall:.3f} s; "
+                  + " ".join(f"{k}={v:.3f}" for k, v in enc.timings.items())
+                  + f"; PSNR-HVS {enc.state.total_psnr:.4f} dB, {enc.stats.total_bytes} bytes",
+                  flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA card is visible", file=sys.stderr)
@@ -189,6 +214,9 @@ def main() -> int:
         knn_breakdown()
         return 0
     clip = synthetic_clip(32, 720, 1280)
+    if "--encode-times" in sys.argv[1:]:
+        encode_times(clip)
+        return 0
     for name, settings in PATHS.items():
         profile_path(name, settings, clip)
     return 0

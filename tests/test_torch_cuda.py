@@ -45,6 +45,91 @@ def test_tk_kernel_matches_plain(cuda, T, P, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 15, 16, 17, 31, 32])
+def test_tk_kernel_adversarial_cases(cuda, S):
+    """Worst-case error growth, duplicate colors, equal lumas, a single
+    valid slot, none (kernels/tk_dither.py adversarial_case): bit-identical
+    to the plain version, in both instantiations (S <= 16, S <= 32)."""
+    pix, mirror, pidx, pal, valid = t_tk.adversarial_case(S, seed=S)
+    args = [torch.as_tensor(a) for a in (pix, mirror, pidx)]
+    table = t_tk.pal_table(torch.as_tensor(pal), torch.as_tensor(valid))
+    want = t_tk.tk_select_plain(*args, table)
+    got = t_tk.tk_select(*(a.to(cuda) for a in args), table.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 3, 5, 4 * 33 + 1])
+def test_tk_kernel_ragged_tile_counts(cuda, T):
+    """A block covers four tiles: tile counts that leave its last block
+    partly empty, and a single tile."""
+    want = t_tk.tk_select(*_tk_args(T, 3, 16, T, "cpu"))
+    got = t_tk.tk_select(*_tk_args(T, 3, 16, T, cuda))
+    torch.cuda.synchronize()
+    assert got.shape == (T, 64) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_tk_kernel_truncations_are_exact(cuda):
+    """The kernel's floor(|n| / 1000) over every integer of +-2.1e6 (the
+    scan's luma differences stay within +-1.7e6), multiples of 1000 and
+    their neighbours included, and its trunc(n * 9 / 100) over +-20,000
+    (the errors stay within +-16,320)."""
+    lo, count = -2_100_000, 4_200_001
+    n = torch.arange(lo, lo + count, dtype=torch.int64)
+    got = t_tk.trunc_probe(lo, count, 0, cuda).cpu().long()
+    assert torch.equal(got, torch.div(n.abs(), 1000, rounding_mode="floor"))
+    lo, count = -20_000, 40_001
+    n = torch.arange(lo, lo + count, dtype=torch.int64)
+    got = t_tk.trunc_probe(lo, count, 1, cuda).cpu().long()
+    assert torch.equal(got, torch.div(n * 9, 100, rounding_mode="trunc"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed", [1, 4])
+def test_yliluoma2_on_the_card_matches_the_cpu(cuda, mixed):
+    """All int32: the selected slots of a small chunk are bit-identical."""
+    from tiler_tpu_torch.pipeline import dither as t_dither
+
+    rng = np.random.default_rng(mixed)
+    T, P, S = 37, 5, 16
+    args = (torch.as_tensor(rng.integers(0, 256, (T, 8, 8, 3), dtype=np.uint8)),
+            torch.as_tensor(rng.integers(0, 4, T, dtype=np.uint8)),
+            torch.as_tensor(rng.integers(0, P, T, dtype=np.int32)),
+            torch.as_tensor(rng.integers(0, 256, (P, S, 3), dtype=np.int32)),
+            torch.as_tensor(rng.random((P, S)) < 0.8))
+    want = t_dither.yliluoma2_select(*args, mixed, chunk=16)
+    got = t_dither.yliluoma2_select(*(a.to(cuda) for a in args), mixed, chunk=16)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_device_ingest_on_the_card_matches_the_cpu(cuda):
+    """planar_to_rgb is bit-identical (fp32 passes without fused
+    multiply-adds); resize_rgb within one code value (cuBLAS sums in
+    another order)."""
+    from tiler_tpu_torch.ops import resample as t_resample
+
+    rng = np.random.default_rng(9)
+    y = torch.as_tensor(rng.integers(0, 256, (3, 48, 72), dtype=np.uint8))
+    u = torch.as_tensor(rng.integers(0, 256, (3, 24, 36), dtype=np.uint8))
+    v = torch.as_tensor(rng.integers(0, 256, (3, 24, 36), dtype=np.uint8))
+    lh = torch.from_numpy(t_resample.lanczos_matrix(48, 100))
+    lw = torch.from_numpy(t_resample.lanczos_matrix(72, 150))
+    want = t_resample.planar_to_rgb(y, u, v, None, None, out_h=48, out_w=72, resize=False)
+    got = t_resample.planar_to_rgb(y.to(cuda), u.to(cuda), v.to(cuda), None, None,
+                                   out_h=48, out_w=72, resize=False)
+    assert torch.equal(got.cpu(), want)
+    want = t_resample.planar_to_rgb(y, u, v, lh, lw, out_h=100, out_w=150, resize=True)
+    got = t_resample.planar_to_rgb(y.to(cuda), u.to(cuda), v.to(cuda), lh.to(cuda),
+                                   lw.to(cuda), out_h=100, out_w=150, resize=True)
+    diff = (got.cpu().int() - want.int()).abs()
+    assert got.shape == (3, 104, 152, 3) and int(diff.max()) <= 1
+    assert float((diff != 0).float().mean()) <= 0.001
+
+
+@pytest.mark.cuda
 def test_knn_kernel_matches_plain(cuda):
     gen = torch.Generator().manual_seed(6)
     feats = torch.randn(1000, 192, generator=gen) * 50
@@ -230,3 +315,27 @@ def test_cli_settings_file_encodes_on_the_card(cuda, tmp_path):
     subprocess.run([sys.executable, "-m", "tiler_tpu_torch", str(ini)], check=True,
                    capture_output=True, timeout=600, cwd=Path(__file__).resolve().parents[1])
     assert len(GTMDecoder(str(out)).decode_frames()) == len(frames)
+
+
+@pytest.mark.cuda
+def test_cli_settings_file_yliluoma2_and_scaling_on_the_card(cuda, tmp_path):
+    """DitheringUseThomasKnoll=0 and Scaling=2 in the settings file: the
+    y4m goes up as planes, is resampled on the card, and encodes."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from tiler_tpu_torch.bitstream.gtm import GTMDecoder
+
+    rng = np.random.default_rng(7)
+    frames = np.clip(np.cumsum(rng.integers(-8, 9, (4, 24, 32, 3)), axis=0) + 128,
+                     0, 255).astype(np.uint8)
+    src, out, ini = tmp_path / "clip.y4m", tmp_path / "out.gtm", tmp_path / "s.ini"
+    _write_y4m(str(src), list(frames), 25.0)
+    ini.write_text(f"[Load]\nInputFileName={src}\nOutputFileName={out}\nScaling=2\n"
+                   "[Dither]\nPaletteCount=8\nDitheringUseThomasKnoll=0\n"
+                   "[MotionPredict]\nMotionPredictRadius=4\n")
+    subprocess.run([sys.executable, "-m", "tiler_tpu_torch", str(ini)], check=True,
+                   capture_output=True, timeout=600, cwd=Path(__file__).resolve().parents[1])
+    decoded = GTMDecoder(str(out)).decode_frames()
+    assert len(decoded) == len(frames) and decoded[0].shape[:2] == (48, 64)

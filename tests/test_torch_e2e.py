@@ -59,6 +59,29 @@ def test_run_all_within_the_determinism_gate(jax_stream, tmp_path):
     assert enc.step_stats["knn_kernel_cells"] == 0  # no B2 below its corpus gate
 
 
+def test_yliluoma2_run_all_within_the_determinism_gate(tmp_path):
+    """dithering_use_thomas_knoll off in both packages, on the first four
+    frames."""
+    settings = dataclasses.replace(_settings(), dithering_use_thomas_knoll=False)
+    clip = CLIP[:4]
+    results = {}
+    for name in ("jax", "torch"):
+        out = tmp_path / f"{name}.gtm"
+        if name == "jax":
+            with jax.enable_x64(False):
+                enc = JaxEncoder(settings, log=None)
+                enc.run_all(clip, fps=FPS, out_path=str(out))
+        else:
+            enc = Encoder(settings, log=None, device="cpu")
+            enc.run_all(clip, fps=FPS, out_path=str(out))
+        frames = np.stack(GTMDecoder(str(out)).decode_frames())[..., :3]
+        assert frames.shape == clip.shape
+        mse = np.mean((frames.astype(np.float64) - clip) ** 2)
+        results[name] = (10 * np.log10(255 * 255 / max(mse, 1e-9)), enc.stats.total_bytes)
+    assert abs(results["torch"][0] - results["jax"][0]) <= 0.1
+    assert abs(results["torch"][1] - results["jax"][1]) <= 0.02 * results["jax"][1]
+
+
 def test_jax_checkpoint_after_dither_finishes_in_the_port(jax_stream, tmp_path):
     ck = tmp_path / "after_dither.ckpt"
     with jax.enable_x64(False):
@@ -111,3 +134,20 @@ def test_cli_encodes_a_y4m(tmp_path):
         check=True, capture_output=True, timeout=300, cwd=Path(__file__).resolve().parents[1])
     assert len(GTMDecoder(str(out)).decode_frames()) == len(CLIP)
     assert (tmp_path / "cli.ckpt").stat().st_size > 0
+
+
+def test_cli_settings_file_with_yliluoma2_and_scaling(tmp_path):
+    """The settings-file keys of the two settings: DitheringUseThomasKnoll=0
+    and Scaling=0.5 encode (the y4m goes up as planes and is resampled by
+    ops/resample.py), and the stream has the scaled size."""
+    src = tmp_path / "clip.y4m"
+    write_y4m(str(src), list(CLIP[:3]), FPS)
+    out, ini = tmp_path / "cli.gtm", tmp_path / "s.ini"
+    ini.write_text(f"[Load]\nInputFileName={src}\nOutputFileName={out}\nScaling=0.5\n"
+                   "[Dither]\nPaletteCount=4\nDitheringUseThomasKnoll=0\n"
+                   "DitheringYliluoma2MixedColors=2\n[MotionPredict]\nMotionPredictRadius=2\n")
+    subprocess.run(
+        [sys.executable, "-m", "tiler_tpu_torch", "encode", "-s", str(ini), "--device", "cpu"],
+        check=True, capture_output=True, timeout=300, cwd=Path(__file__).resolve().parents[1])
+    frames = GTMDecoder(str(out)).decode_frames()
+    assert len(frames) == 3 and frames[0].shape[:2] == (32, 48)

@@ -154,10 +154,12 @@ OFF_SLICE = [
     ("motion_rank_dims", dict(motion_rank_dims=48)),
     ("int16_features", dict(int16_features=True)),
     ("phase_b_motion", dict(phase_b_motion="research")),
-    ("dithering_use_thomas_knoll", dict(dithering_use_thomas_knoll=False)),
+    # Yliluoma2 itself is ported: only a plan size it cannot hold is refused
+    ("dithering_use_thomas_knoll", dict(dithering_use_thomas_knoll=False,
+                                        dithering_yliluoma2_mixed_colors=0)),
     ("color_quantizer", dict(color_quantizer="mediancut")),
     ("host_ram_budget", dict(host_ram_budget=1e9)),
-    ("scaling", dict(scaling=0.5)),
+    ("scaling", dict(scaling=0.0)),  # any positive factor resamples
     ("use_pallas_tk", dict(use_pallas_tk=False)),
     ("dithering_mode", dict(dithering_mode="wavelets")),
     ("hbm_frames_budget", dict(hbm_frames_budget=1000.0)),
@@ -169,9 +171,20 @@ OFF_SLICE = [
                          ids=[f"{f}-{i}" for i, (f, _) in enumerate(OFF_SLICE)])
 def test_off_slice_setting_raises(flag, overrides):
     frames = np.zeros((2, 16, 16, 3), np.uint8)
+    if flag == "dithering_use_thomas_knoll":
+        flag = "dithering_yliluoma2_mixed_colors"  # the rule that names it
     with pytest.raises(ValueError, match=flag):
         if overrides is None:
             t_encoder.Encoder(EncoderSettings(), device="cpu", mesh=object())
         else:
             enc = t_encoder.Encoder(EncoderSettings(**overrides), device="cpu", log=None)
             enc.load_frames(frames)  # the frame budget is checked on load
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(dithering_use_thomas_knoll=False),
+    dict(dithering_use_thomas_knoll=False, dithering_yliluoma2_mixed_colors=16),
+    dict(scaling=0.5), dict(scaling=2.0, device_resample=False),
+], ids=["yliluoma2", "yliluoma2_16", "scaling_half", "scaling_host"])
+def test_ported_settings_are_accepted(overrides):
+    t_encoder.check_settings(EncoderSettings(**overrides))

@@ -141,6 +141,21 @@ def test_dither_bit_identical(jax_run):
     assert np.array_equal(st.corpus_pal_pixels.numpy(), np.asarray(want.corpus_pal_pixels))
 
 
+def test_dither_yliluoma2_bit_identical(jax_run):
+    """The same stage with dithering_use_thomas_knoll off in both
+    packages, from the snapshot before it."""
+    from tiler_tpu.pipeline import dither as j_dither
+
+    flipped = dataclasses.replace(_settings(), dithering_use_thomas_knoll=False)
+    with jax.enable_x64(False):
+        want = j_dither.dither(copy.copy(jax_run["prepare_palettes"]), flipped)
+        want = np.asarray(want.corpus_pal_pixels)
+    st = _port(jax_run["prepare_palettes"])
+    t_dither.dither(st, flipped)
+    assert np.array_equal(st.corpus_pal_pixels.numpy(), want)
+    assert not np.array_equal(want, np.asarray(jax_run["dither"].corpus_pal_pixels))
+
+
 def test_reconstruct_winners_and_used_tiles(jax_run):
     """>= 99% (tile, palette) winner agreement on the emitted cells and
     the post-reindex used-tile count within 1% (EPU tie shifts shrink the

@@ -55,6 +55,17 @@ def _trunc_div(a: torch.Tensor, b: int) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="trunc")
 
 
+def mirrored_bayer(mirror: torch.Tensor) -> torch.Tensor:
+    """[n] uint8 (hmirror | vmirror << 1) -> [n, 8, 8] int32 Bayer maps:
+    canonical pixels are dithered against the map mirrored as their tile
+    is on screen."""
+    n = mirror.shape[0]
+    bay = torch.as_tensor(BAYER8, device=mirror.device).reshape(1, 8, 8).expand(n, 8, 8)
+    m = mirror.to(torch.int32)[:, None, None]
+    bay = torch.where((m & 1) != 0, bay.flip(-1), bay)
+    return torch.where((m & 2) != 0, bay.flip(-2), bay)
+
+
 def tk_select_plain(pix, mirror, pal_idx, table) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same arguments and result.
 
@@ -63,7 +74,6 @@ def tk_select_plain(pix, mirror, pal_idx, table) -> torch.Tensor:
     int32 [T]; table int32 [P, S, 8] from :func:`pal_table`.
     Returns uint8 [T, 64] palette slots."""
     T = pix.shape[0]
-    dev = pix.device
     pal = table[pal_idx.long()]  # [T, S, 8]
     pr, pg, pb, pl = (pal[:, None, :, i] for i in range(4))  # [T, 1, S]
     pv = pal[:, None, :, 4] > 0
@@ -97,11 +107,7 @@ def tk_select_plain(pix, mirror, pal_idx, table) -> torch.Tensor:
         eb = eb + sb - bb
     keys = torch.stack(keys, dim=-1)  # [T, 64, 64] distinct per pixel
     picks = torch.stack(picks, dim=-1)
-    bay = torch.as_tensor(BAYER8, device=dev).reshape(1, 8, 8).expand(T, 8, 8)
-    m = mirror.to(torch.int32)[:, None, None]
-    bay = torch.where((m & 1) != 0, bay.flip(-1), bay)
-    bay = torch.where((m & 2) != 0, bay.flip(-2), bay)
-    mapv = bay.reshape(T, 64, 1).long()
+    mapv = mirrored_bayer(mirror).reshape(T, 64, 1).long()
     order = torch.sort(keys, dim=-1, stable=True).indices
     at_rank = order.gather(-1, mapv)
     return picks.gather(-1, at_rank)[..., 0].to(torch.uint8)
@@ -128,15 +134,25 @@ def _check(pix, mirror, pal_idx, table):
         raise ValueError(f"tk_select: table must be [P, S, 8], got {tuple(table.shape)}")
     if not 1 <= table.shape[1] <= 32:
         raise ValueError(f"tk_select: palette size {table.shape[1]} outside 1..32")
-    if T:
-        lo, hi = (int(v) for v in torch.aminmax(pal_idx))
-        if lo < 0 or hi >= table.shape[0]:
-            raise ValueError(f"tk_select: pal_idx outside [0, {table.shape[0]})")
+    if T and dev.type == "cpu":
+        # on the card this read would stall the host on the device inside
+        # the dither stage: there the caller checks the range while
+        # pal_idx is still a host array (check_pal_idx, pipeline/dither.py)
+        check_pal_idx(pal_idx.numpy(), table.shape[0])
+
+
+def check_pal_idx(pal_idx: np.ndarray, P: int):
+    """Raise unless every palette index (a host array) lies in [0, P)."""
+    if pal_idx.size and (int(pal_idx.min()) < 0 or int(pal_idx.max()) >= P):
+        raise ValueError(f"tk_select: pal_idx outside [0, {P})")
 
 
 def tk_select(pix, mirror, pal_idx, table) -> torch.Tensor:
     """Thomas Knoll palette slot per pixel; see :func:`tk_select_plain`.
-    CPU tensors run the plain version, CUDA tensors the kernel."""
+    CPU tensors run the plain version, CUDA tensors the kernel. The
+    kernel's integer ranges assume colors in 0..255 with the luma of
+    :func:`pal_table`; on the card the caller answers for pal_idx in
+    [0, P) (:func:`check_pal_idx`)."""
     if pix.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tk_select: no kernel for device {pix.device}")
     _check(pix, mirror, pal_idx, table)
@@ -155,3 +171,72 @@ def tk_select(pix, mirror, pal_idx, table) -> torch.Tensor:
 
 
 tk_select.launches = 0
+
+
+def trunc_probe(lo: int, count: int, which: int, device) -> torch.Tensor:
+    """The kernel's two truncating divisions, each one fp32 multiply-add
+    rounding toward zero (``luma_quotient`` and ``feedback`` in
+    csrc/tk_dither.cu), on the ``count`` integers n from ``lo`` on,
+    computed on the card: ``which`` 0 gives floor(|n| / 1000), 1 gives
+    trunc(n * 9 / 100), int32 [count]. A test holds them against the
+    integer divisions over their whole ranges."""
+    out = torch.empty(count, dtype=torch.int32, device=device)
+    code = _build.lib().tk_trunc_probe_launch(out.data_ptr(), lo, count, which,
+                                              _build.stream_ptr(out.device))
+    _build.check(code, "tk_trunc_probe_launch")
+    return out
+
+
+def adversarial_case(S: int, seed: int = 0, reps: int = 2):
+    """Tiles and palettes that provoke the kernel's edge cases, as numpy
+    arrays (pix uint8 [T, 64, 3], mirror uint8 [T], pal_idx int32 [T],
+    pal_rgb int32 [P, S, 3], pal_valid bool [P, S]); T is odd.
+
+    Palettes: one color 255 in every slot and one color 0 (against all-0
+    and all-255 pixels: the error grows to its bound, and every slot is a
+    duplicate, so the first minimum must win); duplicated colors; colors of
+    equal luma (their picks rank by step); black and white only; a single
+    valid slot (the last, the first); no valid slot; random with invalid
+    slots; equal lumas, duplicates and invalid slots together."""
+    rng = np.random.default_rng(seed)
+    rand = lambda: rng.integers(0, 256, (S, 3))  # noqa: E731
+    # colors of one luma: a base plus moves (a, b, c) with 299a + 587b + 114c = 0
+    d = np.arange(-40, 41)
+    a, b, c = np.meshgrid(d, d, d, indexing="ij")
+    zero = (RED_MUL * a + GREEN_MUL * b + BLUE_MUL * c == 0) & ((a != 0) | (b != 0))
+    steps = np.stack([a[zero], b[zero], c[zero]], axis=1)  # luma-neutral moves
+    base = np.array([120, 120, 120])
+    same_luma = base + steps[rng.permutation(len(steps))[:S]]
+    if len(same_luma) < S:
+        same_luma = np.resize(same_luma, (S, 3))
+    dup = rand()
+    dup[S // 2:] = dup[:S - S // 2]
+    bw = np.where((np.arange(S) % 2 == 0)[:, None], 0, 255) * np.ones((1, 3), int)
+    mixed = same_luma.copy()
+    mixed[::3] = mixed[0]
+    pals = [np.full((S, 3), 255), np.zeros((S, 3), int), dup[rng.permutation(S)],
+            same_luma, bw, rand(), rand(), rand(), rand(), mixed]
+    valid = np.ones((len(pals), S), bool)
+    valid[5] = False
+    valid[5, S - 1] = True
+    valid[6] = False
+    valid[6, 0] = True
+    valid[7] = False
+    valid[8] = rng.random(S) < 0.7
+    valid[9, 1::4] = False
+    pal = np.stack(pals).astype(np.int32)
+    assert pal.min() >= 0 and pal.max() <= 255
+    # each palette against tiles of 0, of 255, random, and random with
+    # every channel at 0 or 255
+    tiles, pidx = [], []
+    for _ in range(reps):
+        for p in range(len(pals)):
+            random = rng.integers(0, 256, (2, 64, 3))
+            tiles += [np.zeros((64, 3), int), np.full((64, 3), 255), random[0],
+                      np.where(random[1] < 128, 0, 255)]
+            pidx += [p] * 4
+    tiles.append(rng.integers(0, 256, (64, 3)))
+    pidx.append(3)
+    pix = np.stack(tiles).astype(np.uint8)
+    mirror = rng.integers(0, 4, len(pix)).astype(np.uint8)
+    return pix, mirror, np.asarray(pidx, np.int32), pal, valid

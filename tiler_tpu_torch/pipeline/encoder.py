@@ -52,17 +52,19 @@ def check_settings(s: EncoderSettings):
         ("int16_features", s.int16_features, "int16 features are not ported"),
         ("phase_b_motion", s.phase_b_motion != "reuse",
          "only phase_b_motion='reuse' is ported"),
-        ("dithering_use_thomas_knoll", not s.dithering_use_thomas_knoll,
-         "Yliluoma2 dithering is not ported"),
         ("use_pallas_tk", not s.use_pallas_tk,
-         "the port dithers through its TK kernel only"),
+         "the port dithers Thomas Knoll through its kernel only"),
+        ("dithering_yliluoma2_mixed_colors",
+         not 1 <= s.dithering_yliluoma2_mixed_colors <= 16,
+         "Yliluoma2 plans hold 1..16 mixed colors (a plan of up to twice "
+         "that is ranked by the 6-bit Bayer value)"),
         ("dithering_mode", s.dithering_mode == "wavelets",
          "the wavelet psy-vis mode is not ported"),
         ("color_quantizer", s.color_quantizer != "kmeans",
          "only the k-means color quantizer is ported"),
         ("host_ram_budget", s.host_ram_budget > 0,
          "host-resident / disk-spill modes are not ported"),
-        ("scaling", s.scaling != 1.0, "resampling on load is not ported"),
+        ("scaling", not s.scaling > 0, "the scaling factor must be positive"),
         ("palette_size", not 1 <= s.palette_size <= 32,
          "the TK kernel packs a palette slot in 5 bits"),
     )
@@ -99,23 +101,48 @@ class Encoder:
         self.step_stats = {}
 
     # --- ingest -----------------------------------------------------------
-    def load_frames(self, frames_rgb, fps: float = 24.0, manual_keyframes=None):
+    def load_frames(self, frames_rgb, fps: float = 24.0, manual_keyframes=None,
+                    resample_to=None):
+        """frames_rgb: [F, H, W, 3] uint8 RGB or an io.video.PlanarClip;
+        resample_to=(H, W) resamples on the device (ops/resample.py)."""
         t0 = self._start()
         self.state = load_mod.load(EncodeState(), frames_rgb, fps, self.settings,
-                                   self.device, manual_keyframes=manual_keyframes)
+                                   self.device, manual_keyframes=manual_keyframes,
+                                   resample_to=resample_to)
         self._stamp("load", t0)
         self.log(f"{self.state.n_frames} frames, {self.state.width}x"
                  f"{self.state.height} @ {fps:.3f} fps")
         return self
 
     def load_video(self, path: Optional[str] = None):
+        """Ingest ``path``. With ``device_resample`` (the default) a
+        natively planar source (y4m, 4:2:0 video) ships its raw planes
+        and an RGB source with ``scaling != 1`` its source-size frames,
+        and the device converts and resamples; which route a source takes
+        follows from its type, and a failure on that route raises.
+        Otherwise the host converts and scales (PIL Lanczos)."""
         from ..io import video
 
         s = self.settings
         path = path or s.input_file_name
+        count = s.frame_count or None
+        scale = lambda n: max(1, round(n * s.scaling))  # noqa: E731
+        if s.device_resample:
+            clip = video.load_video_planar(path, s.start_frame, count)
+            if clip is not None:
+                rt = (scale(clip.src_h), scale(clip.src_w)) if s.scaling != 1.0 else None
+                manual = video.manual_keyframes(path, s.start_frame, clip.n_frames)
+                return self.load_frames(clip, clip.fps, manual_keyframes=manual,
+                                        resample_to=rt)
+            if s.scaling != 1.0:
+                frames, fps = video.load_video(path, start_frame=s.start_frame,
+                                               frame_count=count, scaling=1.0)
+                manual = video.manual_keyframes(path, s.start_frame, len(frames))
+                return self.load_frames(
+                    frames, fps, manual_keyframes=manual,
+                    resample_to=(scale(frames.shape[1]), scale(frames.shape[2])))
         frames, fps = video.load_video(path, start_frame=s.start_frame,
-                                       frame_count=s.frame_count or None,
-                                       scaling=s.scaling)
+                                       frame_count=count, scaling=s.scaling)
         manual = video.manual_keyframes(path, s.start_frame, len(frames))
         return self.load_frames(frames, fps, manual_keyframes=manual)
 
