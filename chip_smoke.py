@@ -45,11 +45,25 @@ Run from the repository root:  python3 chip_smoke.py
    im2row path must land within 0.1 dB PSNR-HVS and 2% bytes of it, and
    no more than 0.1 dB below the default path (v1 and B2 rank
    differently, so the streams differ).
+   Three more paths of the same clip: research_int16
+   (phase_b_motion="research", int16_features=True: tk_select and B2 must
+   run, phase B must re-search every frame but the keyframes' first, T
+   must clear the gate but may differ from 116,097, and the second
+   encode's stages print beside the default's); host_stream
+   (hbm_frames_budget below the clip's ~177 MB: frames and tiles must stay
+   numpy arrays on the host, T = 116,097, within 0.1 dB PSNR-HVS and 2%
+   bytes of the default, prints whether the stream is the default's, and
+   the peak of allocated device memory must be below the default's); and
+   spill (host_ram_budget below the clip too, one encode: the tiles must
+   be a disk memmap, a checkpoint must write their sidecar .npy, and the
+   encoder resumed from it must save the same stream).
 5. Runs both top-k kernels and their plain versions on the encode's own
    corpus and cells: each kernel's recall of the exact top-64 must equal
    its plain version's within 0.005.
 6. Encodes a small clip on the card and on the CPU (plain versions), with
-   both ditherers: RGB-PSNR within 0.1 dB and bytes within 2%; the
+   both ditherers and with research, with and without int16: RGB-PSNR
+   within 0.1 dB and
+   bytes within 2%; the
    Yliluoma2 dither of one state on the card and on the CPU is
    bit-identical.
 7. Writes a planar 4:2:0 y4m of a CIF clip and encodes it through
@@ -93,7 +107,14 @@ REF_ENCODES = {"default": (23.9470, 2271203), "im2row_v1": (24.2840, 2327635)}
 EXPECT_LAUNCHES = {"default": {"tk_select": 1, "knn_bucket_top2": 57},
                    "im2row_v1": {"tk_select": 1, "knn_bucket_top2_v1": 57,
                                  "blockify_field": 32},
-                   "yliluoma2": {"tk_select": 0, "knn_bucket_top2": 57}}
+                   "yliluoma2": {"tk_select": 0, "knn_bucket_top2": 57},
+                   "research_int16": {"tk_select": 1},
+                   "host_stream": {"tk_select": 1, "knn_bucket_top2": 57},
+                   "spill": {"tk_select": 1, "knn_bucket_top2": 57}}
+# the clip's device bytes at 1280x720x32 (frames and canonical tiles, ~177
+# MB): the host paths set their budgets below it
+CLIP_BYTES = 32 * 720 * 1280 * 3 + 32 * 90 * 160 * 192
+HOST_BUDGET = 1e8
 # tk_select's scan, per (pixel, step, color), in csrc/tk_dither.cu's design:
 # 10.5 issue slots (an SM issues 128 thread instructions a clock), of which
 # 3.5 instructions give an int32 result (64 a clock an SM)
@@ -353,11 +374,15 @@ def check_blockify(torch, dev, mh=98, mw=168, K=192):
 
 
 def encode_path(name, settings, kernels, F=32, H=720, W=1280, min_corpus=65536,
-                device="cuda", again=True):
+                device="cuda", again=True, after=None):
     """One encode of the clip through the Encoder on the card, with every
     kernel's count set to 0 just before and read just after: each of
-    ``kernels`` must have launched. Checks the decode and frame 0, then
-    (with ``again``) encodes once more for times without start-up costs."""
+    ``kernels`` must have launched. Reads the peak of allocated device
+    memory (reset just before). Checks the decode and frame 0, calls
+    ``after(encoder, stream)`` (its dict joins the result), then (with
+    ``again``) encodes once more for times without start-up costs."""
+    import torch
+
     from tiler_tpu_torch.bitstream.gtm import GTMDecoder
     from tiler_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tiler_tpu_torch.pipeline.encoder import Encoder
@@ -367,18 +392,24 @@ def encode_path(name, settings, kernels, F=32, H=720, W=1280, min_corpus=65536,
     os.makedirs(STREAM_DIR, exist_ok=True)
     stream = os.path.join(STREAM_DIR, f"{name}.gtm")
     enc = Encoder(settings, device=device, log=lambda *a: print(*a, flush=True))
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.monotonic()
     enc.run_all(clip, fps=25.0, out_path=stream)
     wall = time.monotonic() - t0
     counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
     st = enc.state
     T = enc.step_stats["corpus_tiles"]
     print(f"[{name}] encode {W}x{H}x{F}: {wall:.3f} s; stages "
           + " ".join(f"{k}={v:.3f}" for k, v in enc.timings.items()), flush=True)
     print(f"[{name}] corpus T={T}, cells through a top-k kernel="
           f"{enc.step_stats['knn_kernel_cells']}, launches {counts}, PSNR-HVS "
-          f"{st.total_psnr:.4f} dB, {enc.stats.total_bytes} bytes", flush=True)
+          f"{st.total_psnr:.4f} dB, {enc.stats.total_bytes} bytes, {len(st.keyframes)} "
+          f"keyframes, phase B re-searches {enc.step_stats['phase_b_searches']}, peak "
+          f"device memory allocated {peak} bytes", flush=True)
     if T < min_corpus:
         raise AssertionError(f"corpus of {T} tiles is below the knn kernels' gate {min_corpus}")
     for kname in kernels:
@@ -411,7 +442,12 @@ def encode_path(name, settings, kernels, F=32, H=720, W=1280, min_corpus=65536,
            "stage_s": enc.timings, "corpus_tiles": T,
            "knn_kernel_cells": enc.step_stats["knn_kernel_cells"],
            "launches": counts, "psnr_hvs_db": st.total_psnr,
-           "psnr_rgb_db": psnr_rgb, "bytes": enc.stats.total_bytes}
+           "psnr_rgb_db": psnr_rgb, "bytes": enc.stats.total_bytes,
+           "keyframes": len(st.keyframes),
+           "phase_b_searches": enc.step_stats["phase_b_searches"], "peak_bytes": peak,
+           "stream": open(stream, "rb").read()}
+    if after is not None:
+        out.update(after(enc, stream))
     if not again:
         return out
     # the same encode again: the first one also paid one-time costs
@@ -427,10 +463,10 @@ def encode_path(name, settings, kernels, F=32, H=720, W=1280, min_corpus=65536,
     return {**out, "second_wall_s": wall2, "second_stage_s": again.timings}
 
 
-def check_against_reference(name, run):
+def check_against_reference(name, run, corpus=CORPUS_T):
     """The encode against REF_ENCODES where it has a figure there (0.1 dB
-    PSNR-HVS, 2% bytes), with the corpus size and the launches of
-    EXPECT_LAUNCHES."""
+    PSNR-HVS, 2% bytes), with the corpus size (unless ``corpus`` is None)
+    and the launches of EXPECT_LAUNCHES."""
     if name in REF_ENCODES:
         ref_db, ref_bytes = REF_ENCODES[name]
         d_db = run["psnr_hvs_db"] - ref_db
@@ -440,13 +476,69 @@ def check_against_reference(name, run):
         if abs(d_db) > 0.1 or abs(d_bytes) > 0.02:
             raise AssertionError(f"the {name} encode left the reference's 0.1 dB / 2% "
                                  "envelope")
-    if run["corpus_tiles"] != CORPUS_T:
+    if corpus is not None and run["corpus_tiles"] != corpus:
         raise AssertionError(f"the {name} corpus has {run['corpus_tiles']} tiles, "
-                             f"not {CORPUS_T}")
+                             f"not {corpus}")
     for kname, n in EXPECT_LAUNCHES[name].items():
         if run["launches"][kname] != n:
             raise AssertionError(f"{kname} launched {run['launches'][kname]} times on the "
                                  f"{name} path, not {n}")
+
+
+def host_check(spilled: bool):
+    """encode_path's after-hook for the host paths: the frames and tiles
+    stayed numpy arrays on the host (the tiles a memmap when spilled). A
+    spilled encode also writes a checkpoint, which must put the tiles in
+    a sidecar .npy, and the encoder resumed from it must save the same
+    stream."""
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+
+    def check(enc, stream):
+        st = enc.state
+        kinds = {k: type(getattr(st, k)).__name__ for k in ("frames_rgb", "tiles_canon")}
+        if not all(isinstance(getattr(st, k), np.ndarray) for k in kinds):
+            raise AssertionError(f"the host path kept {kinds} in place of numpy arrays")
+        if isinstance(st.tiles_canon, np.memmap) != spilled:
+            raise AssertionError(f"tiles_canon is a {kinds['tiles_canon']} (spill={spilled})")
+        out = {"host_types": kinds}
+        if spilled:
+            ck = os.path.join(STREAM_DIR, "spill.ckpt")
+            enc.save_checkpoint(ck)
+            side = ck + ".tiles_canon.npy"
+            if not os.path.exists(side):
+                raise AssertionError("the spill checkpoint wrote no tiles_canon sidecar")
+            resumed = Encoder.load_checkpoint(ck, log=None, device=enc.device)
+            if not isinstance(resumed.state.tiles_canon, np.memmap):
+                raise AssertionError("the resumed spill state did not map its sidecar")
+            again = os.path.join(STREAM_DIR, "spill_resumed.gtm")
+            resumed.save(again)
+            with open(again, "rb") as a, open(stream, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError("the resumed spill encode saved another stream")
+            out["sidecar_bytes"] = os.path.getsize(side)
+            os.remove(side)
+        print(f"host path: {kinds}" + (f"; checkpoint sidecar {out['sidecar_bytes']} bytes, "
+                                       "the resumed save wrote the same stream"
+                                       if spilled else ""), flush=True)
+        return out
+
+    return check
+
+
+def check_host_path(name, run, default):
+    """A host path against the default encode: the corpus, 0.1 dB
+    PSNR-HVS, 2% bytes, and a lower peak of allocated device memory."""
+    check_against_reference(name, run)
+    d_db = run["psnr_hvs_db"] - default["psnr_hvs_db"]
+    d_bytes = (run["bytes"] - default["bytes"]) / default["bytes"]
+    same = run["stream"] == default["stream"]
+    print(f"[{name}] against the default: PSNR-HVS {d_db:+.6f} dB, bytes {d_bytes:+.4%}, "
+          f"stream {'identical' if same else 'different'}; peak device memory allocated "
+          f"{run['peak_bytes']} bytes against the default's {default['peak_bytes']}",
+          flush=True)
+    if abs(d_db) > 0.1 or abs(d_bytes) > 0.02:
+        raise AssertionError(f"the {name} encode left the default's 0.1 dB / 2% envelope")
+    return {"d_db": d_db, "d_bytes": d_bytes, "identical": same}
 
 
 def knn_on_encode_data(frames=(0, 16), k=64, F=32, H=720, W=1280, device="cuda"):
@@ -654,7 +746,7 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda")
-    t0 = time.monotonic()
+    t_start = t0 = time.monotonic()
     so = _build.build(verbose=True)
     print(f"kernels built in {time.monotonic() - t0:.2f} s -> {os.path.relpath(so, ROOT)}",
           flush=True)
@@ -699,9 +791,41 @@ def main() -> int:
                       ("yliluoma2", yliluoma2)):
         check_against_reference(name, run)
     torch.cuda.empty_cache()
+    # the reference's phase B: a motion search against the reconstruction
+    # in every frame but a keyframe's first, on int16 features (which move
+    # the motion PSNRs that reduce thresholds, so T may differ)
+    research = encode_path("research_int16",
+                           EncoderSettings(phase_b_motion="research", int16_features=True),
+                           ("tk_select", "knn_bucket_top2"))
+    check_against_reference("research_int16", research, corpus=None)
+    if research["phase_b_searches"] != research["frames"] - research["keyframes"]:
+        raise AssertionError(f"phase B re-searched {research['phase_b_searches']} frames, not "
+                             f"{research['frames']} less {research['keyframes']} keyframes")
+    print(f"[research_int16] T={research['corpus_tiles']} (default {default['corpus_tiles']}); "
+          "second encode, stage (s): research_int16 / default: "
+          + " ".join(f"{k}={v:.3f}/{default['second_stage_s'][k]:.3f}"
+                     for k, v in research["second_stage_s"].items()), flush=True)
+    torch.cuda.empty_cache()
+    # the clip over the device budget: frames and tiles stream from host
+    # RAM, and past the host budget the tiles spill to a disk memmap
+    print(f"host paths: the clip's {CLIP_BYTES} device bytes against budgets of "
+          f"{HOST_BUDGET:.0f}", flush=True)
+    host_stream = encode_path("host_stream", EncoderSettings(hbm_frames_budget=HOST_BUDGET),
+                              ("tk_select", "knn_bucket_top2"), after=host_check(False))
+    check_host_path("host_stream", host_stream, default)
+    if not host_stream["peak_bytes"] < default["peak_bytes"]:
+        raise AssertionError("the host_stream encode did not lower the device memory peak")
+    torch.cuda.empty_cache()
+    spill = encode_path("spill", EncoderSettings(hbm_frames_budget=HOST_BUDGET,
+                                                 host_ram_budget=HOST_BUDGET),
+                        ("tk_select", "knn_bucket_top2"), again=False, after=host_check(True))
+    check_host_path("spill", spill, default)
+    torch.cuda.empty_cache()
     knn_on_encode_data()
     small_clip_agreement()
     small_clip_agreement(dithering_use_thomas_knoll=False)
+    small_clip_agreement(phase_b_motion="research", int16_features=True)
+    small_clip_agreement(phase_b_motion="research")
     yliluoma2_dither_agreement()
     y4m_device_ingest()
 
@@ -724,6 +848,7 @@ def main() -> int:
                                                "sm_clock_mhz", "registers", "spill_bytes")
             if key in checks[name]}}
         for name, (src, replaces) in sources.items()]
+    print(f"chip_smoke: every phase passed in {time.monotonic() - t_start:.1f} s", flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps({"kernels": kernels}))

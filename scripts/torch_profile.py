@@ -31,9 +31,23 @@ and prints every encode's wall time and per-stage seconds (the first
 pays the start-up costs). --root DIR imports tiler_tpu_torch from another
 checkout (an unpacked parent commit, say), so that two commits can be
 timed in turns within one call on one card.
+
+    python3 scripts/torch_profile.py --long-clip [FRAMES]
+
+instead encodes a long synthetic clip, 1280x720x1600 by default (64 s at
+25 fps, 8.85e9 device bytes: over the default hbm_frames_budget, so the
+frames and tiles stream from host RAM), twice: at EncoderSettings(), and
+with host_ram_budget=4e9 (the tiles spill to a disk memmap in
+TILER_TPU_SPILL_DIR, by default build/spill). For each it prints the wall
+time and the stage split, the peak of allocated device memory, the peak
+resident host memory of the process during the encode (VmHWM, reset just
+before), the corpus size T and the stream. A corpus that overflows the
+int32 (tile, palette) packing raises in reconstruct: the error is printed
+and the run goes on; FRAMES then sets a shorter clip.
 """
 import ctypes
 import os
+import resource
 import re
 import subprocess
 import sys
@@ -202,6 +216,61 @@ def encode_times(clip, reps=3):
                   flush=True)
 
 
+def _host_peak_bytes(reset=False):
+    """The process's peak resident memory since the last reset (Linux's
+    VmHWM, which writing 5 to clear_refs resets), or ru_maxrss, the peak
+    over the process's whole life, where that is unavailable."""
+    try:
+        if reset:
+            with open("/proc/self/clear_refs", "w") as f:
+                f.write("5")
+            return None
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return 1024 * int(line.split()[1])
+    except OSError:
+        pass
+    return None if reset else 1024 * resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+
+
+def long_clip(F=1600, H=720, W=1280):
+    from tiler_tpu_torch.pipeline.load import clip_bytes
+
+    os.environ.setdefault("TILER_TPU_SPILL_DIR", os.path.join(ROOT, "build", "spill"))
+    os.makedirs(os.environ["TILER_TPU_SPILL_DIR"], exist_ok=True)
+    out = os.path.join(ROOT, "build", "torch_profile")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.monotonic()
+    clip = synthetic_clip(F, H, W)
+    print(f"[long clip] {W}x{H}x{F}: {clip_bytes(F, H, W)} device bytes, made in "
+          f"{time.monotonic() - t0:.1f} s; host RSS now {_host_peak_bytes()} bytes", flush=True)
+    for name, settings in (("host", EncoderSettings()),
+                           ("spill", EncoderSettings(host_ram_budget=4e9))):
+        enc = Encoder(settings, device="cuda", log=lambda *a: print(*a, flush=True))
+        torch.cuda.reset_peak_memory_stats()
+        _host_peak_bytes(reset=True)
+        t0 = time.monotonic()
+        try:
+            enc.run_all(clip, fps=25.0, out_path=os.path.join(out, f"long_{name}.gtm"))
+        except ValueError as e:
+            print(f"[long clip {name}] failed after {time.monotonic() - t0:.1f} s "
+                  f"(stages {enc.timings}): {e}", flush=True)
+            continue
+        wall = time.monotonic() - t0
+        st = enc.state
+        print(f"[long clip {name}] encode {wall:.3f} s; stages "
+              + " ".join(f"{k}={v:.3f}" for k, v in enc.timings.items())
+              + f"; frames {type(st.frames_rgb).__name__}, tiles "
+              f"{type(st.tiles_canon).__name__}; peak device memory allocated "
+              f"{torch.cuda.max_memory_allocated()} bytes, peak host RSS "
+              f"{_host_peak_bytes()} bytes; T={enc.step_stats['corpus_tiles']}, "
+              f"{len(st.keyframes)} keyframes, PSNR-HVS {st.total_psnr:.4f} dB, "
+              f"{enc.stats.total_bytes} bytes", flush=True)
+        del enc, st
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA card is visible", file=sys.stderr)
@@ -212,6 +281,10 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     if "--knn-breakdown" in sys.argv[1:]:
         knn_breakdown()
+        return 0
+    if "--long-clip" in sys.argv[1:]:
+        rest = sys.argv[sys.argv.index("--long-clip") + 1:]
+        long_clip(int(rest[0]) if rest and rest[0].isdigit() else 1600)
         return 0
     clip = synthetic_clip(32, 720, 1280)
     if "--encode-times" in sys.argv[1:]:

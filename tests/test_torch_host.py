@@ -7,12 +7,15 @@ and the rule that the port imports nothing of the JAX package.
   payload that hangs the original (ROADMAP C6) and writes the bytes of
   one thread;
 - checkpoints: the JAX package's load into the port's classes without
-  importing it, and no other name of that package is unpickled.
+  importing it, and no other name of that package is unpickled;
+- the disk spill: ``utils/spill.py`` and the readers' ``spill_budget``
+  give what the originals give, memmaps included.
 
 That the port and chip_smoke.py import nothing of jax, the JAX package
 or bench.py is test_torch_ops.py::test_import_pulls_no_jax_or_triton.
 """
 import dataclasses
+import os
 import pickle
 import subprocess
 import sys
@@ -26,14 +29,19 @@ from bench import synthetic_clip
 from tiler_tpu import native as j_native
 from tiler_tpu.bitstream.gtm import GTMDecoder as JaxDecoder
 from tiler_tpu.config import EncoderSettings as JaxSettings
+from tiler_tpu.io import export as j_export
+from tiler_tpu.io import video as j_video
 from tiler_tpu.pipeline.save import save as jax_save
+from tiler_tpu.utils import spill as j_spill
 from tiler_tpu_torch import native as t_native
 from tiler_tpu_torch.bitstream.gtm import GTMDecoder
+from tiler_tpu_torch.io import video as t_video
 from tiler_tpu_torch.config import EncoderSettings
 from tiler_tpu_torch.models.convert import state_to_numpy
 from tiler_tpu_torch.pipeline import encoder as t_encoder
 from tiler_tpu_torch.pipeline.save import save
 from tiler_tpu_torch.utils import clips
+from tiler_tpu_torch.utils import spill as t_spill
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(palette_count=8, motion_predict_radius=4, epu_knn_k=8, kmeans_iters=4)
@@ -166,3 +174,54 @@ def test_encoder_runs_on_the_card_unless_told_otherwise():
 def test_slice_settings_are_accepted(overrides):
     enc = t_encoder.Encoder(EncoderSettings(**overrides), log=None, device="cpu")
     assert all(getattr(enc.settings, k) == v for k, v in overrides.items())
+
+
+@pytest.mark.parametrize("shape,dtype", [((3, 5, 7), np.int16), ((2, 4, 8, 8, 3), np.uint8)])
+def test_spill_memmap_equals_the_reference(shape, dtype, tmp_path, monkeypatch):
+    """An unlinked temp-file memmap in TILER_TPU_SPILL_DIR, in both."""
+    monkeypatch.setenv("TILER_TPU_SPILL_DIR", str(tmp_path))
+    got, want = t_spill.spill_memmap(shape, dtype), j_spill.spill_memmap(shape, dtype)
+    for mm in (got, want):
+        assert isinstance(mm, np.memmap) and mm.shape == shape and mm.dtype == dtype
+        assert mm.mode == "r+" and not mm.any()
+        assert os.fstat(mm._spill_file.fileno()).st_dev == os.stat(tmp_path).st_dev
+    assert list(tmp_path.iterdir()) == []  # unlinked: nothing to clean up
+    got[:] = 7
+    assert (got == 7).all()
+
+
+@pytest.fixture(scope="module")
+def sources(tmp_path_factory):
+    """A C444 y4m (the writer's format) and a PNG sequence of 5 frames."""
+    from PIL import Image
+
+    d = tmp_path_factory.mktemp("sources")
+    clip = synthetic_clip(5, 24, 40, seed=3)
+    j_export.write_y4m(str(d / "clip.y4m"), clip, fps=25.0)
+    for i, f in enumerate(clip):
+        Image.fromarray(f).save(d / f"frame{i:03d}.png")
+    return d
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("clip.y4m", {}), ("clip.y4m", dict(start_frame=1, frame_count=3)),
+    ("clip.y4m", dict(scaling=0.5)), ("frame%03d.png", {}),
+    ("frame%03d.png", dict(start_frame=2, frame_count=2)),
+])
+@pytest.mark.parametrize("spill_budget", [0, 1])
+def test_load_video_spill_budget_equals_the_reference(sources, name, kwargs, spill_budget):
+    path = str(sources / name)
+    got, fps = t_video.load_video(path, spill_budget=spill_budget, **kwargs)
+    want, jfps = j_video.load_video(path, spill_budget=spill_budget, **kwargs)
+    assert fps == jfps and np.array_equal(got, want)
+    assert isinstance(got, np.memmap) == isinstance(want, np.memmap) == bool(spill_budget)
+
+
+@pytest.mark.parametrize("spill_budget", [0, 1])
+def test_load_y4m_planar_spill_budget_equals_the_reference(sources, spill_budget):
+    got = t_video.load_video_planar(str(sources / "clip.y4m"), 1, 3, spill_budget)
+    want = j_video.load_video_planar(str(sources / "clip.y4m"), 1, 3, spill_budget)
+    for a, b in ((got.y, want.y), (got.u, want.u), (got.v, want.v)):
+        assert np.array_equal(a, b)
+        assert isinstance(a, np.memmap) == isinstance(b, np.memmap) == bool(spill_budget)
+    assert got.fps == want.fps

@@ -9,8 +9,10 @@
 - Every setting off the ported slice is refused with a ValueError that
   names it.
 """
+import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import jax
@@ -145,30 +147,30 @@ def test_metrics():
     assert t_metrics.PSNR_MAX == j_metrics.PSNR_MAX
 
 
+# each case keeps the id it had before the settings ported since left
+# the list (int16_features-6, host_ram_budget-10, hbm_frames_budget-14
+# are accepted now; phase_b_motion-7 is an unknown mode)
 OFF_SLICE = [
-    ("knn_backend", dict(knn_backend="ivf")),
-    ("knn_backend", dict(knn_backend="pallas_v3")),  # no such backend
-    ("epu_two_stage", dict(epu_two_stage=True)),
-    ("epu_fused_fp", dict(epu_fused_fp=True)),
-    ("motion_field", dict(motion_field="im2col")),  # no such field
-    ("motion_rank_dims", dict(motion_rank_dims=48)),
-    ("int16_features", dict(int16_features=True)),
-    ("phase_b_motion", dict(phase_b_motion="research")),
+    ("knn_backend-0", "knn_backend", dict(knn_backend="ivf")),
+    ("knn_backend-1", "knn_backend", dict(knn_backend="pallas_v3")),  # no such backend
+    ("epu_two_stage-2", "epu_two_stage", dict(epu_two_stage=True)),
+    ("epu_fused_fp-3", "epu_fused_fp", dict(epu_fused_fp=True)),
+    ("motion_field-4", "motion_field", dict(motion_field="im2col")),  # no such field
+    ("motion_rank_dims-5", "motion_rank_dims", dict(motion_rank_dims=48)),
+    ("phase_b_motion-7", "phase_b_motion", dict(phase_b_motion="recompute")),  # no such mode
     # Yliluoma2 itself is ported: only a plan size it cannot hold is refused
-    ("dithering_use_thomas_knoll", dict(dithering_use_thomas_knoll=False,
-                                        dithering_yliluoma2_mixed_colors=0)),
-    ("color_quantizer", dict(color_quantizer="mediancut")),
-    ("host_ram_budget", dict(host_ram_budget=1e9)),
-    ("scaling", dict(scaling=0.0)),  # any positive factor resamples
-    ("use_pallas_tk", dict(use_pallas_tk=False)),
-    ("dithering_mode", dict(dithering_mode="wavelets")),
-    ("hbm_frames_budget", dict(hbm_frames_budget=1000.0)),
-    ("mesh", None),
+    ("dithering_use_thomas_knoll-8", "dithering_use_thomas_knoll",
+     dict(dithering_use_thomas_knoll=False, dithering_yliluoma2_mixed_colors=0)),
+    ("color_quantizer-9", "color_quantizer", dict(color_quantizer="mediancut")),
+    ("scaling-11", "scaling", dict(scaling=0.0)),  # any positive factor resamples
+    ("use_pallas_tk-12", "use_pallas_tk", dict(use_pallas_tk=False)),
+    ("dithering_mode-13", "dithering_mode", dict(dithering_mode="wavelets")),
+    ("mesh-15", "mesh", None),
 ]
 
 
-@pytest.mark.parametrize("flag,overrides", OFF_SLICE,
-                         ids=[f"{f}-{i}" for i, (f, _) in enumerate(OFF_SLICE)])
+@pytest.mark.parametrize("flag,overrides", [c[1:] for c in OFF_SLICE],
+                         ids=[c[0] for c in OFF_SLICE])
 def test_off_slice_setting_raises(flag, overrides):
     frames = np.zeros((2, 16, 16, 3), np.uint8)
     if flag == "dithering_use_thomas_knoll":
@@ -178,13 +180,30 @@ def test_off_slice_setting_raises(flag, overrides):
             t_encoder.Encoder(EncoderSettings(), device="cpu", mesh=object())
         else:
             enc = t_encoder.Encoder(EncoderSettings(**overrides), device="cpu", log=None)
-            enc.load_frames(frames)  # the frame budget is checked on load
+            enc.load_frames(frames)
+
+
+SMALL = dict(palette_count=4, motion_predict_radius=2, epu_knn_k=4, kmeans_iters=2)
+# settings ported since they stood in OFF_SLICE: each encodes a tiny clip
+ENCODED = {"int16": dict(int16_features=True), "research": dict(phase_b_motion="research"),
+           "host_ram_budget": dict(host_ram_budget=1e9, hbm_frames_budget=1),
+           "hbm_frames_budget": dict(hbm_frames_budget=1000.0)}
 
 
 @pytest.mark.parametrize("overrides", [
     dict(dithering_use_thomas_knoll=False),
     dict(dithering_use_thomas_knoll=False, dithering_yliluoma2_mixed_colors=16),
-    dict(scaling=0.5), dict(scaling=2.0, device_resample=False),
-], ids=["yliluoma2", "yliluoma2_16", "scaling_half", "scaling_host"])
+    dict(scaling=0.5), dict(scaling=2.0, device_resample=False), *ENCODED.values(),
+], ids=["yliluoma2", "yliluoma2_16", "scaling_half", "scaling_host", *ENCODED])
 def test_ported_settings_are_accepted(overrides):
     t_encoder.check_settings(EncoderSettings(**overrides))
+    if overrides in ENCODED.values():
+        from tiler_tpu_torch.bitstream.gtm import GTMDecoder
+        from tiler_tpu_torch.utils.clips import synthetic_clip
+
+        enc = t_encoder.Encoder(EncoderSettings(**SMALL, **overrides), device="cpu", log=None)
+        with tempfile.TemporaryDirectory() as d:
+            enc.run_all(synthetic_clip(3, 32, 48), 25.0, os.path.join(d, "out.gtm"))
+            assert len(GTMDecoder(os.path.join(d, "out.gtm")).decode_frames()) == 3
+        host = overrides.get("hbm_frames_budget", 8e9) < 3 * 32 * 48 * 3
+        assert isinstance(enc.state.tiles_canon, np.ndarray) == host

@@ -1,6 +1,4 @@
-"""Host-side video ingest: the port's own copy of ``load_video``,
-``load_video_planar`` and ``manual_keyframes`` of ``tiler_tpu/io/video.py``
-and what they call (without the disk-spill variants).
+"""Host-side video ingest: the port's own copy of ``tiler_tpu/io/video.py``.
 
 The reference links ffmpeg 5.1 via ~28k lines of generated Pascal bindings
 (extern.pas:744-904). Here ingest is pluggable by source type:
@@ -54,7 +52,7 @@ class PlanarClip:
     def to_rgb_host(self, scaling: float = 1.0) -> np.ndarray:
         """The exact load_y4m math on the host — nearest chroma upsample,
         BT.601, round/clip, PIL Lanczos: what the device ingest is held
-        against."""
+        against, and the ingest of a clip over the device budget."""
         out = []
         for i in range(self.n_frames):
             y = self.y[i].astype(np.float32)
@@ -77,14 +75,24 @@ class _FrameSink:
     Bounds host RAM to ~one copy of the clip (the reference streams
     per-frame through FFMPEG callbacks, extern.pas:744-904): frames are
     written in place; the hint comes from the container size/metadata and
-    the buffer grows geometrically when the hint was low."""
+    the buffer grows geometrically when the hint was low.
 
-    def __init__(self, capacity_hint: int = 0):
+    spill_budget > 0: a buffer whose size would exceed it is backed by
+    an unlinked temp-file memmap instead of RAM (utils/spill.py), so a
+    video larger than host RAM still ingests — capacity becomes disk."""
+
+    def __init__(self, capacity_hint: int = 0, spill_budget: int = 0):
         self.buf = None
         self.n = 0
         self.hint = max(0, int(capacity_hint))
+        self.spill_budget = max(0, int(spill_budget))
 
     def _alloc(self, cap: int, frame_shape) -> np.ndarray:
+        nbytes = cap * int(np.prod(frame_shape))
+        if self.spill_budget and nbytes > self.spill_budget:
+            from ..utils.spill import spill_memmap
+
+            return spill_memmap((cap, *frame_shape))
         return np.empty((cap, *frame_shape), np.uint8)
 
     def append(self, frame: np.ndarray):
@@ -108,10 +116,13 @@ class _FrameSink:
             raise ValueError("no frames")
         if self.n == len(self.buf):
             return self.buf
-        # a big growth overhang: trim with one copy so the pipeline
-        # doesn't pin up to 1.5x the clip for its whole life via the
-        # view's base
-        if len(self.buf) - self.n > max(64, self.n // 10):
+        # RAM-backed with a big growth overhang: trim with one copy so
+        # the pipeline doesn't pin up to 1.5x the clip for its whole
+        # life via the view's base. Memmap overhang is disk, not RAM —
+        # keep the view (a copy would materialize it in RAM).
+        if not isinstance(self.buf, np.memmap) and (
+            len(self.buf) - self.n > max(64, self.n // 10)
+        ):
             self.buf = np.ascontiguousarray(self.buf[: self.n])
         return self.buf[: self.n]  # view, no copy
 
@@ -156,7 +167,8 @@ def _y4m_header(f):
 
 
 def load_y4m_planar(path: str, start_frame: int = 0,
-                    frame_count: Optional[int] = None) -> PlanarClip:
+                    frame_count: Optional[int] = None,
+                    spill_budget: int = 0) -> PlanarClip:
     """Parse YUV4MPEG2 into raw source-resolution planes — NO host chroma
     upsample, NO host colorspace conversion, NO host scaling; those run
     on device (pipeline/load.py + ops/resample.py)."""
@@ -169,7 +181,7 @@ def load_y4m_planar(path: str, start_frame: int = 0,
         cap = est_total - start_frame
         if frame_count is not None:
             cap = min(cap, frame_count)
-        sinks = [_FrameSink(max(cap, 0)) for _ in planes]
+        sinks = [_FrameSink(max(cap, 0), spill_budget) for _ in planes]
         idx = 0
         while True:
             line = f.readline()
@@ -194,7 +206,7 @@ def load_y4m_planar(path: str, start_frame: int = 0,
 
 
 def load_y4m(path: str, start_frame: int = 0, frame_count: Optional[int] = None,
-             scaling: float = 1.0) -> Tuple[np.ndarray, float]:
+             scaling: float = 1.0, spill_budget: int = 0) -> Tuple[np.ndarray, float]:
     """Parse YUV4MPEG2; returns (frames [F,H,W,3] uint8 RGB, fps)."""
     with open(path, "rb") as f:
         W, H, fps, planes = _y4m_header(f)
@@ -208,7 +220,7 @@ def load_y4m(path: str, start_frame: int = 0, frame_count: Optional[int] = None,
         cap = est_total - start_frame
         if frame_count is not None:
             cap = min(cap, frame_count)
-        frames = _FrameSink(max(cap, 0))
+        frames = _FrameSink(max(cap, 0), spill_budget)
         idx = 0
         while True:
             line = f.readline()
@@ -246,12 +258,25 @@ def load_y4m(path: str, start_frame: int = 0, frame_count: Optional[int] = None,
 
 def load_image_sequence(pattern: str, start_frame: int = 0,
                         frame_count: Optional[int] = None,
-                        scaling: float = 1.0) -> Tuple[np.ndarray, float]:
+                        scaling: float = 1.0,
+                        spill_budget: int = 0) -> Tuple[np.ndarray, float]:
     """printf-style pattern (e.g. frame%04d.png); fps fixed at 24
     (tilingencoder.pas:1790)."""
     from PIL import Image
 
-    frames = _FrameSink()
+    # count the matching files up front: a hint-less spill sink grows by
+    # re-copying its whole memmap per 1.5x step (~2x extra disk writes +
+    # a transient ~2.5x footprint on exactly the beyond-RAM sequences
+    # the spill exists for); the files are on disk, so the count is free
+    hint = 0
+    if spill_budget:
+        j = start_frame
+        while os.path.exists(pattern % j) and (
+                frame_count is None or hint < frame_count):
+            hint += 1
+            j += 1
+
+    frames = _FrameSink(hint, spill_budget)
     i = start_frame
     while frame_count is None or len(frames) < frame_count:
         p = pattern % i
@@ -337,7 +362,8 @@ def _probe_ffmpeg(ffmpeg: str, path: str):
 
 
 def load_ffmpeg_planar(path: str, start_frame: int = 0,
-                       frame_count: Optional[int] = None) -> Optional[PlanarClip]:
+                       frame_count: Optional[int] = None,
+                       spill_budget: int = 0) -> Optional[PlanarClip]:
     """Decode a natively-4:2:0 video into raw yuv420p planes for device
     ingest. Returns None when the source isn't 4:2:0 (forcing a chroma
     subsample there would CHANGE content, not just move work) or ffmpeg
@@ -360,9 +386,9 @@ def load_ffmpeg_planar(path: str, start_frame: int = 0,
     cap = max(0, nb_frames - start_frame)
     if frame_count is not None and cap:
         cap = min(cap, frame_count)
-    sy = _FrameSink(cap)
-    su = _FrameSink(cap)
-    sv = _FrameSink(cap)
+    sy = _FrameSink(cap, spill_budget)
+    su = _FrameSink(cap, spill_budget)
+    sv = _FrameSink(cap, spill_budget)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE)
     try:
         while frame_count is None or len(sy) < frame_count:
@@ -385,7 +411,7 @@ def load_ffmpeg_planar(path: str, start_frame: int = 0,
 
 
 def load_ffmpeg(path: str, start_frame: int = 0, frame_count: Optional[int] = None,
-                scaling: float = 1.0) -> Tuple[np.ndarray, float]:
+                scaling: float = 1.0, spill_budget: int = 0) -> Tuple[np.ndarray, float]:
     """Decode via the ffmpeg binary, STREAMING the rawvideo pipe frame by
     frame into a preallocated array (capturing the whole pipe then
     copying doubled host RAM — a 2-min 720p clip is ~8 GB of frames)."""
@@ -416,7 +442,7 @@ def load_ffmpeg(path: str, start_frame: int = 0, frame_count: Optional[int] = No
     cap = max(0, nb_frames - start_frame)
     if frame_count is not None and cap:
         cap = min(cap, frame_count)
-    sink = _FrameSink(cap)
+    sink = _FrameSink(cap, spill_budget)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE)
     try:
         while frame_count is None or len(sink) < frame_count:
@@ -433,22 +459,23 @@ def load_ffmpeg(path: str, start_frame: int = 0, frame_count: Optional[int] = No
 
 
 def load_video(path: str, start_frame: int = 0, frame_count: Optional[int] = None,
-               scaling: float = 1.0) -> Tuple[np.ndarray, float]:
+               scaling: float = 1.0, spill_budget: int = 0) -> Tuple[np.ndarray, float]:
     if re.search(r"%0?\d*d", path):
-        return load_image_sequence(path, start_frame, frame_count, scaling)
+        return load_image_sequence(path, start_frame, frame_count, scaling, spill_budget)
     if path.lower().endswith(".y4m"):
-        return load_y4m(path, start_frame, frame_count, scaling)
+        return load_y4m(path, start_frame, frame_count, scaling, spill_budget)
     if path.lower().endswith(".gtm"):
         from ..bitstream.gtm import GTMDecoder
 
         dec = GTMDecoder(path)
         frames = np.stack([f[..., :3] for f in dec.decode_frames()])
         return frames, 24.0
-    return load_ffmpeg(path, start_frame, frame_count, scaling)
+    return load_ffmpeg(path, start_frame, frame_count, scaling, spill_budget)
 
 
 def load_video_planar(path: str, start_frame: int = 0,
-                      frame_count: Optional[int] = None) -> Optional[PlanarClip]:
+                      frame_count: Optional[int] = None,
+                      spill_budget: int = 0) -> Optional[PlanarClip]:
     """Planar (device-ingest) loader: raw YUV planes at source resolution
     for sources that are natively planar — y4m files and 4:2:0 video via
     ffmpeg. Returns None when the source isn't (image sequences and .gtm
@@ -458,8 +485,8 @@ def load_video_planar(path: str, start_frame: int = 0,
     if re.search(r"%0?\d*d", path) or path.lower().endswith(".gtm"):
         return None
     if path.lower().endswith(".y4m"):
-        return load_y4m_planar(path, start_frame, frame_count)
-    return load_ffmpeg_planar(path, start_frame, frame_count)
+        return load_y4m_planar(path, start_frame, frame_count, spill_budget)
+    return load_ffmpeg_planar(path, start_frame, frame_count, spill_budget)
 
 
 def manual_keyframes(path: str, start_frame: int, n_frames: int) -> Optional[List[int]]:

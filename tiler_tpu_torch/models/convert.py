@@ -2,8 +2,10 @@
 
 The state is this system's weights: a ``tiler_tpu`` checkpoint holds it
 as numpy arrays (``tiler_tpu/pipeline/encoder.py:262-305``), the port
-keeps its large arrays as torch tensors on its device. The tilemap, the
-keyframe list and the use counts stay numpy on both sides.
+keeps its large arrays as torch tensors on its device, except a
+host-resident clip's frames and canonical tiles (``pipeline/load.py``),
+which stay numpy arrays or disk memmaps. The tilemap, the keyframe list
+and the use counts stay numpy on both sides.
 """
 from __future__ import annotations
 
@@ -35,13 +37,19 @@ def _copy(state: EncodeState) -> EncodeState:
     return out
 
 
-def state_from_numpy(state: EncodeState, device) -> EncodeState:
+# the fields that a host-resident clip keeps on the host
+HOST_FIELDS = ("frames_rgb", "tiles_canon")
+
+
+def state_from_numpy(state: EncodeState, device, host_resident: bool = False) -> EncodeState:
     """A copy of a numpy ``EncodeState`` with its large arrays as tensors
-    on ``device``. Transient caches are dropped."""
+    on ``device``; with ``host_resident`` the frames and canonical tiles
+    stay as they are (a memmap is not read). Transient caches are
+    dropped."""
     out = _copy(state)
     for name, dtype in DEVICE_FIELDS.items():
         v = getattr(state, name)
-        if v is not None:
+        if v is not None and not (host_resident and name in HOST_FIELDS):
             setattr(out, name, torch.as_tensor(np.array(v), device=device).to(dtype))
     return out
 
@@ -49,12 +57,13 @@ def state_from_numpy(state: EncodeState, device) -> EncodeState:
 def state_to_numpy(state: EncodeState) -> EncodeState:
     """A copy of an ``EncodeState`` with every device array (a torch
     tensor, or any array with ``__array__``) as a numpy array: what
-    ``tiler_tpu`` checkpoints and ``pipeline/save.py`` read."""
+    ``tiler_tpu`` checkpoints and ``pipeline/save.py`` read. A numpy array
+    (a memmap, say) is kept as it is."""
     out = _copy(state)
     for name in DEVICE_FIELDS:
         v = getattr(state, name)
         if isinstance(v, torch.Tensor):
             setattr(out, name, v.cpu().numpy())
-        elif v is not None:
+        elif v is not None and not isinstance(v, np.ndarray):
             setattr(out, name, np.asarray(v))
     return out

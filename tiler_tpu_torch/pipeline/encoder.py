@@ -5,15 +5,19 @@ unless the caller names another device. Checkpoints use the JAX
 package's format, a pickle of the numpy ``EncodeState`` and the settings,
 written with the port's own classes; :meth:`Encoder.load_checkpoint` also
 reads the JAX package's checkpoints by mapping its class names onto the
-port's copies (:class:`_CheckpointUnpickler`), without importing it.
+port's copies (:class:`_CheckpointUnpickler`), without importing it. A
+disk-spilled (memmap) field is written to a sidecar ``<ckpt>.<field>.npy``
+and mapped again on load, in both packages' format.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import pickle
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config import EncoderSettings
@@ -29,9 +33,19 @@ from . import reduce as reduce_mod
 from . import reindex as reindex_mod
 from . import save as save_mod
 
+
+class _SpilledRef:
+    """Checkpoint placeholder for a disk-spilled (memmap) state field;
+    names the sidecar .npy written next to the pickle."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+
 # the JAX package's pickled class names -> the port's copies
 _CHECKPOINT_CLASSES = {
     ("tiler_tpu.config", "EncoderSettings"): EncoderSettings,
+    ("tiler_tpu.pipeline.encoder", "_SpilledRef"): _SpilledRef,
     **{("tiler_tpu.models.state", name): getattr(state_mod, name)
        for name in ("EncodeState", "KeyFrameInfo", "TileMapSoA")},
 }
@@ -49,9 +63,8 @@ def check_settings(s: EncoderSettings):
          "only the 'passes' and 'im2row' window fields exist"),
         ("motion_rank_dims", s.motion_rank_dims != 192,
          "only full 192-dim motion ranking is ported"),
-        ("int16_features", s.int16_features, "int16 features are not ported"),
-        ("phase_b_motion", s.phase_b_motion != "reuse",
-         "only phase_b_motion='reuse' is ported"),
+        ("phase_b_motion", s.phase_b_motion not in ("reuse", "research"),
+         "only the 'reuse' and 'research' phase-B modes exist"),
         ("use_pallas_tk", not s.use_pallas_tk,
          "the port dithers Thomas Knoll through its kernel only"),
         ("dithering_yliluoma2_mixed_colors",
@@ -62,8 +75,6 @@ def check_settings(s: EncoderSettings):
          "the wavelet psy-vis mode is not ported"),
         ("color_quantizer", s.color_quantizer != "kmeans",
          "only the k-means color quantizer is ported"),
-        ("host_ram_budget", s.host_ram_budget > 0,
-         "host-resident / disk-spill modes are not ported"),
         ("scaling", not s.scaling > 0, "the scaling factor must be positive"),
         ("palette_size", not 1 <= s.palette_size <= 32,
          "the TK kernel packs a palette slot in 5 bits"),
@@ -108,7 +119,7 @@ class Encoder:
         t0 = self._start()
         self.state = load_mod.load(EncodeState(), frames_rgb, fps, self.settings,
                                    self.device, manual_keyframes=manual_keyframes,
-                                   resample_to=resample_to)
+                                   resample_to=resample_to, log=self.log)
         self._stamp("load", t0)
         self.log(f"{self.state.n_frames} frames, {self.state.width}x"
                  f"{self.state.height} @ {fps:.3f} fps")
@@ -120,15 +131,17 @@ class Encoder:
         and an RGB source with ``scaling != 1`` its source-size frames,
         and the device converts and resamples; which route a source takes
         follows from its type, and a failure on that route raises.
-        Otherwise the host converts and scales (PIL Lanczos)."""
+        Otherwise the host converts and scales (PIL Lanczos). Past
+        ``host_ram_budget`` the decoded frames go to a disk memmap."""
         from ..io import video
 
         s = self.settings
         path = path or s.input_file_name
         count = s.frame_count or None
+        spill = int(s.host_ram_budget)
         scale = lambda n: max(1, round(n * s.scaling))  # noqa: E731
         if s.device_resample:
-            clip = video.load_video_planar(path, s.start_frame, count)
+            clip = video.load_video_planar(path, s.start_frame, count, spill)
             if clip is not None:
                 rt = (scale(clip.src_h), scale(clip.src_w)) if s.scaling != 1.0 else None
                 manual = video.manual_keyframes(path, s.start_frame, clip.n_frames)
@@ -136,27 +149,29 @@ class Encoder:
                                         resample_to=rt)
             if s.scaling != 1.0:
                 frames, fps = video.load_video(path, start_frame=s.start_frame,
-                                               frame_count=count, scaling=1.0)
+                                               frame_count=count, scaling=1.0,
+                                               spill_budget=spill)
                 manual = video.manual_keyframes(path, s.start_frame, len(frames))
                 return self.load_frames(
                     frames, fps, manual_keyframes=manual,
                     resample_to=(scale(frames.shape[1]), scale(frames.shape[2])))
         frames, fps = video.load_video(path, start_frame=s.start_frame,
-                                       frame_count=count, scaling=s.scaling)
+                                       frame_count=count, scaling=s.scaling,
+                                       spill_budget=spill)
         manual = video.manual_keyframes(path, s.start_frame, len(frames))
         return self.load_frames(frames, fps, manual_keyframes=manual)
 
     # --- steps ------------------------------------------------------------
     def predict_motion(self):
         t0 = self._start()
-        predict_mod.predict_motion(self.state, self.settings)
+        predict_mod.predict_motion(self.state, self.settings, self.device)
         self._stamp("predict_motion", t0)
         self.log(f"{len(self.state.keyframes)} keyframes")
         return self
 
     def reduce(self):
         t0 = self._start()
-        reduce_mod.reduce_tiles(self.state, self.settings)
+        reduce_mod.reduce_tiles(self.state, self.settings, self.device)
         self._stamp("reduce", t0)
         self.log(f"corpus: {len(self.state.corpus_rgb)} tiles")
         return self
@@ -216,10 +231,18 @@ class Encoder:
 
     # --- checkpoint/resume --------------------------------------------------
     def save_checkpoint(self, path: str):
-        """Pickle the numpy state + settings (the JAX package's format)."""
+        """Pickle the numpy state + settings (the JAX package's format). A
+        memmap field goes to ``<path>.<field>.npy`` instead (pickling would
+        read it into RAM); the live encoder keeps its memmap."""
+        st = state_to_numpy(self.state)
+        for fld in dataclasses.fields(st):
+            v = getattr(st, fld.name)
+            if isinstance(v, np.memmap):
+                side = f"{path}.{fld.name}.npy"
+                np.save(side, v)
+                setattr(st, fld.name, _SpilledRef(os.path.basename(side)))
         with open(path, "wb") as f:
-            pickle.dump({"state": state_to_numpy(self.state),
-                         "settings": self.settings}, f)
+            pickle.dump({"state": st, "settings": self.settings}, f)
 
     @classmethod
     def load_checkpoint(cls, path: str, log=print, device="cuda") -> "Encoder":
@@ -228,7 +251,16 @@ class Encoder:
         with open(path, "rb") as f:
             d = _CheckpointUnpickler(f).load()
         enc = cls(d["settings"], log=log, device=device)
-        enc.state = state_from_numpy(d["state"], enc.device)
+        st = d["state"]
+        for fld in dataclasses.fields(st):
+            v = getattr(st, fld.name)
+            if isinstance(v, _SpilledRef):
+                side = os.path.join(os.path.dirname(path) or ".", v.name)
+                setattr(st, fld.name, np.load(side, mmap_mode="r"))
+        host = st.frames_rgb is not None and (
+            isinstance(st.frames_rgb, np.memmap) or isinstance(st.tiles_canon, np.memmap)
+            or load_mod.clip_bytes(*st.frames_rgb.shape[:3]) > enc.settings.hbm_frames_budget)
+        enc.state = state_from_numpy(st, enc.device, host_resident=host)
         return enc
 
     def _start(self) -> float:

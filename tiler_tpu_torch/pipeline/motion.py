@@ -15,6 +15,12 @@ Counterpart of ``tiler_tpu/pipeline/motion.py`` at full 192-dim ranking:
   3. A Manhattan penalty toward the zero offset breaks ties
      (:func:`make_penalty`); the winner (first in q-major, s-minor order)
      gets its error recomputed exactly in fp32 from pixels.
+
+``int16=True`` rounds the tile and window features before they are
+compared (the reference's SmallInt features, tilingencoder.pas:3126).
+Phase B's re-search (``phase_b_motion="research"``) searches the float32
+reconstruction and takes the winner's window pixels as its render
+(``return_windows``).
 """
 from __future__ import annotations
 
@@ -152,11 +158,14 @@ def _window_field_blocks_im2row(frame_rgb, mu, P: int, mh: int, mw: int):
 
 
 def motion_search(cur_rgb: torch.Tensor, prev_rgb: torch.Tensor, radius: int,
-                  field_impl: str = "passes"):
-    """Full-frame motion search of cur against prev ([H, W, 3], H and W
-    multiples of 8). Returns (pred_y, pred_x) int32 [th, tw] and the exact
-    error f32 [th, tw] (squared weighted-DCT L2 + Manhattan penalty).
-    ``field_impl`` picks the window field: "passes" or "im2row"."""
+                  field_impl: str = "passes", int16: bool = False,
+                  return_windows: bool = False):
+    """Full-frame motion search of cur against prev ([H, W, 3] uint8 or
+    float, H and W multiples of 8). Returns (pred_y, pred_x) int32
+    [th, tw] and the exact error f32 [th, tw] (squared weighted-DCT L2 +
+    Manhattan penalty), and with ``return_windows`` the winner's window
+    pixels [th*tw, 8, 8, 3] f32. ``field_impl`` picks the window field:
+    "passes" or "im2row"; ``int16`` rounds the features."""
     dev = cur_rgb.device
     H, W = cur_rgb.shape[0], cur_rgb.shape[1]
     th, tw = H // TILE_W, W // TILE_W
@@ -169,6 +178,8 @@ def motion_search(cur_rgb: torch.Tensor, prev_rgb: torch.Tensor, radius: int,
 
     cur = cur_rgb.float().reshape(th, TILE_W, tw, TILE_W, 3).transpose(1, 2)
     T = tile_features_raster(cur)  # [th, tw, 192]
+    if int16:
+        T = torch.round(T)
     # centering keeps the DC energy out of the bf16 cross terms
     mu = T.reshape(-1, K).mean(dim=0)
     Tc = T - mu
@@ -200,10 +211,10 @@ def motion_search(cur_rgb: torch.Tensor, prev_rgb: torch.Tensor, radius: int,
         D[r0:r0 + bm] = torch.matmul(
             nb.reshape(-1, NQ * NQ, K), fb.reshape(-1, 64, K).transpose(1, 2)
         ).reshape(bm, mw, NQ * NQ, 64)
-    return _rank_merge(D, T, T2, N2blk, pen, th, tw, NQ, P, prev_rgb)
+    return _rank_merge(D, T, T2, N2blk, pen, th, tw, NQ, P, prev_rgb, int16, return_windows)
 
 
-def _rank_merge(D, T, T2, N2blk, pen, th, tw, NQ, P, prev_rgb):
+def _rank_merge(D, T, T2, N2blk, pen, th, tw, NQ, P, prev_rgb, int16, return_windows):
     """Argmin over (q, s) of the bf16-rounded rank error (first in
     q-major, s-minor order), then the exact fp32 winner recompute."""
     dev = D.device
@@ -228,7 +239,12 @@ def _rank_merge(D, T, T2, N2blk, pen, th, tw, NQ, P, prev_rgb):
     d8 = torch.arange(TILE_W, device=dev)
     win = prev_rgb.float()[(wyc[:, None, None] + d8[None, :, None]),
                            (wxc[:, None, None] + d8[None, None, :])]
-    diff = T.reshape(-1, K) - tile_features_raster(win)
+    Wv = tile_features_raster(win)
+    if int16:
+        Wv = torch.round(Wv)
+    diff = T.reshape(-1, K) - Wv
     exact = (diff * diff).sum(dim=-1).reshape(th, tw)
     exact = exact + best_oy.abs().float() + best_ox.abs().float()
+    if return_windows:
+        return best_oy, best_ox, exact, win
     return best_oy, best_ox, exact

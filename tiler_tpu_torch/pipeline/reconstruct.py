@@ -10,10 +10,19 @@ Counterpart of the default path of ``tiler_tpu/pipeline/reconstruct.py``:
     motion prediction is already perfect get only a cheap k=1 nearest
     tile. The cells run in rows of ``CELL_ROW``, the port's frame loop.
   Phase B (sequential per keyframe): a frame loop with the framebuffer
-    carried; each cell keeps its phase-A motion vector (``phase_b_motion
-    = "reuse"``), whose error is evaluated exactly against the
-    reconstruction, and prediction wins unless the KNN error beats it by
-    more than TOL.
+    carried. Under ``phase_b_motion="reuse"`` (the default) each cell
+    keeps its phase-A motion vector, whose error is evaluated exactly
+    against the reconstruction; under ``"research"`` every frame but a
+    keyframe's first re-runs the full-radius motion search against the
+    reconstruction (the reference's TFrame.Reconstruct,
+    tilingencoder.pas:1496-1532). Prediction wins unless the KNN error
+    beats it by more than TOL.
+
+``int16_features`` rounds the features at every exact-error site: the
+rendered corpus (which the top-k kernels then rank), the cells, the EPU
+winner's error and phase B's (SmallInt semantics, tilingencoder.pas:3126).
+Host-resident cells and frames (``pipeline/load.py``) are gathered on the
+host and go up a row of cells, or a keyframe, at a time.
 
 EPU tie-break: among minimal-error pairs, the smallest packed
 ``tile * P + palette`` id, which is the reference's strict-< scan over
@@ -31,7 +40,8 @@ from ..models.state import EncodeState
 from ..ops.color import rgb_to_yuv
 from ..ops.dct import DCT_MAT, DCT_WEIGHTS
 from ..ops.metrics import euclidean_to_psnr
-from .motion import tile_features_raster
+from .load import to_device
+from .motion import motion_search, tile_features_raster
 
 TILE_W = 8
 K = 192
@@ -146,11 +156,17 @@ def _epu_rank_all(feats, cand_idx, cand_pal, G, Q, pal_yuv, S: int, cell_chunk: 
     return torch.cat(tiles), torch.cat(pals)
 
 
-def _exact_choice_err(feats, tile, pal, pp, palettes):
+def _features(tiles_rgb, int16: bool):
+    """tile_features_raster, rounded under int16_features."""
+    f = tile_features_raster(tiles_rgb)
+    return torch.round(f) if int16 else f
+
+
+def _exact_choice_err(feats, tile, pal, pp, palettes, int16: bool = False):
     """Exact fp32 error of the chosen (tile, palette) per cell."""
     n = tile.shape[0]
     rgb = palettes[pal.long()[:, None], pp[tile.long()].reshape(n, 64).long()]
-    rf = tile_features_raster(rgb.float().reshape(n, 8, 8, 3))
+    rf = _features(rgb.float().reshape(n, 8, 8, 3), int16)
     d = feats - rf
     return (d * d).sum(dim=1)
 
@@ -159,7 +175,7 @@ def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str):
     """Phase A for one row of cells: tiles [M, 8, 8, 3] uint8 ->
     (tile int64 [M], pal int64 [M], exact err f32 [M]). ``kernel`` is
     "v2" (B2), "v1" or "" (the exact top-k)."""
-    feats = tile_features_raster(tiles.float())
+    feats = _features(tiles.float(), ctx["int16"])
     if kernel == "v1":
         idx, _ = knn_bucket_topk(feats, ctx["dsT"], ctx["d2p"], kk)
         ctx["kernel_cells"] += feats.shape[0]
@@ -176,7 +192,7 @@ def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str):
     cand_pal = ctx["pal_initial"][idx[:, :pal_k]]
     t, p = _epu_rank_all(feats, idx, cand_pal, ctx["G"], ctx["Q"], ctx["pal_yuv"],
                          ctx["S"], ctx["cell_chunk"])
-    return t, p, _exact_choice_err(feats, t, p, ctx["pp"], ctx["palettes"])
+    return t, p, _exact_choice_err(feats, t, p, ctx["pp"], ctx["palettes"], ctx["int16"])
 
 
 def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
@@ -190,7 +206,8 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
     palettes = torch.as_tensor(state.palettes_rgb, device=dev)
     pal_initial = torch.as_tensor(state.corpus_pal_initial, device=dev).long()
     pp = state.corpus_pal_pixels
-    ds = tile_features_raster(_render_corpus(palettes, pal_initial, pp).float())
+    int16 = settings.int16_features
+    ds = _features(_render_corpus(palettes, pal_initial, pp).float(), int16)
     T = ds.shape[0]
     # (tile, palette) packs into one int32 for the EPU tie-break and the
     # phase-A results: fail loudly rather than wrap
@@ -216,7 +233,7 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
         "ds": ds, "pal_initial": pal_initial, "pp": pp, "palettes": palettes,
         "pal_yuv": rgb_to_yuv(palettes.float()), "S": S,
         "cell_chunk": max(64, min(4096, int(3e8 / per_cell))),
-        "kernel_cells": 0,
+        "kernel_cells": 0, "int16": int16,
     }
     Tp = -(-T // TP_ALIGN) * TP_ALIGN
     if kernel == "v1":
@@ -245,21 +262,24 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
         sel_cheap = np.empty(0, np.int64)
 
     tiles_flat = state.tiles_canon.reshape(F * N, 8, 8, 3)
+    host = isinstance(tiles_flat, np.ndarray)
     kt = torch.zeros(F * N, dtype=torch.long, device=dev)
     kp = torch.zeros(F * N, dtype=torch.long, device=dev)
     ke = torch.full((F * N,), torch.inf, device=dev)
     for cells, args in ((sel, (kk, pal_k, epu, kernel)),
                         (sel_cheap, (1, 1, False, ""))):
         for r0 in range(0, len(cells), CELL_ROW):
-            c = torch.as_tensor(cells[r0:r0 + CELL_ROW], device=dev)
-            t, p, e = _knn_cells(tiles_flat[c], ctx, *args)
+            rows = cells[r0:r0 + CELL_ROW]
+            c = torch.as_tensor(rows, device=dev)
+            tiles = to_device(tiles_flat[rows], dev) if host else tiles_flat[c]
+            t, p, e = _knn_cells(tiles, ctx, *args)
             kt[c], kp[c], ke[c] = t, p, e
     stats["corpus_tiles"] = T
     stats["knn_kernel_cells"] = ctx["kernel_cells"]
     return kt.reshape(F, N), kp.reshape(F, N), ke.reshape(F, N)
 
 
-def _eval_vectors(cur, back, oy, ox, th: int, tw: int):
+def _eval_vectors(cur, back, oy, ox, th: int, tw: int, int16: bool = False):
     """Exact weighted-DCT error of the given per-cell motion vectors
     against ``back`` plus the Manhattan penalty. Returns (err [N] f32,
     win [N, 8, 8, 3] f32 window pixels)."""
@@ -267,7 +287,7 @@ def _eval_vectors(cur, back, oy, ox, th: int, tw: int):
     H, W = cur.shape[0], cur.shape[1]
     N = th * tw
     curt = cur.reshape(th, TILE_W, tw, TILE_W, 3).transpose(1, 2)
-    T = tile_features_raster(curt).reshape(N, K)
+    T = _features(curt, int16).reshape(N, K)
     wy = torch.arange(th, device=dev)[:, None] * TILE_W + oy.reshape(th, tw)
     wx = torch.arange(tw, device=dev)[None, :] * TILE_W + ox.reshape(th, tw)
     wyc = wy.clamp(0, H - TILE_W).reshape(-1)
@@ -275,16 +295,20 @@ def _eval_vectors(cur, back, oy, ox, th: int, tw: int):
     d8 = torch.arange(TILE_W, device=dev)
     win = back[(wyc[:, None, None] + d8[None, :, None]),
                (wxc[:, None, None] + d8[None, None, :])]
-    d = T - tile_features_raster(win)
+    d = T - _features(win, int16)
     err = (d * d).sum(dim=-1) + oy.abs().float() + ox.abs().float()
     return err, win
 
 
 def _phase_b_keyframe(frames, kt, kp, ke, hm, vm, pay, pax, pp, palettes,
-                      radius: int, th: int, tw: int):
+                      radius: int, th: int, tw: int, mode: str, int16: bool,
+                      field_impl: str, stats: dict):
     """Sequential selection/render over one keyframe's frames, carrying
     the framebuffer. Inputs are [L, ...] slices; returns per-frame
-    (oy, ox int32 [L, N], use_pred bool [L, N], err f32 [L, N])."""
+    (oy, ox int32 [L, N], use_pred bool [L, N], err f32 [L, N]).
+    ``mode`` "reuse" evaluates the phase-A vectors against the
+    reconstruction, "research" searches it again (``field_impl``); each
+    re-searched frame adds one to ``stats["phase_b_searches"]``."""
     dev = frames.device
     L = frames.shape[0]
     H, W = th * TILE_W, tw * TILE_W
@@ -298,9 +322,14 @@ def _phase_b_keyframe(frames, kt, kp, ke, hm, vm, pay, pax, pp, palettes,
             ox = torch.zeros(N, dtype=torch.int32, device=dev)
             mperr = torch.full((N,), torch.inf, device=dev)
             win = torch.zeros(N, TILE_W, TILE_W, 3, device=dev)
+        elif mode == "research":
+            oy, ox, mperr, win = motion_search(cur, back, radius, field_impl, int16=int16,
+                                               return_windows=True)
+            oy, ox, mperr = oy.reshape(N), ox.reshape(N), mperr.reshape(N)
+            stats["phase_b_searches"] = stats.get("phase_b_searches", 0) + 1
         else:
             oy, ox = pay[f], pax[f]
-            mperr, win = _eval_vectors(cur, back, oy, ox, th, tw)
+            mperr, win = _eval_vectors(cur, back, oy, ox, th, tw, int16)
         perfect = mperr <= TOL
         knn_wins = (~perfect) & (ke[f] < mperr - TOL)
         use_pred = ~knn_wins
@@ -321,7 +350,9 @@ def reconstruct(state: EncodeState, settings: EncoderSettings,
     th, tw = state.tilemap_h, state.tilemap_w
     tm = state.tilemap
     R = settings.motion_predict_radius
-    kt, kp, ke = _knn_phase(state, settings, {} if stats is None else stats)
+    stats = {} if stats is None else stats
+    stats["phase_b_searches"] = 0
+    kt, kp, ke = _knn_phase(state, settings, stats)
     dev = kt.device
     pp = state.corpus_pal_pixels
     palettes = torch.as_tensor(state.palettes_rgb, device=dev)
@@ -334,11 +365,14 @@ def reconstruct(state: EncodeState, settings: EncoderSettings,
     ox = np.empty((F, N), np.int32)
     use_pred = np.empty((F, N), bool)
     psnr = np.empty((F, N), np.float32)
+    frames = state.frames_rgb
+    host = isinstance(frames, np.ndarray)
     for kf in state.keyframes:
         s = slice(kf.start_frame, kf.end_frame + 1)
         y, x, u, e = _phase_b_keyframe(
-            state.frames_rgb[s], kt[s], kp[s], ke[s], hm[s], vm[s], pay[s],
-            pax[s], pp, palettes, R, th, tw)
+            to_device(frames[s], dev) if host else frames[s], kt[s], kp[s], ke[s],
+            hm[s], vm[s], pay[s], pax[s], pp, palettes, R, th, tw,
+            settings.phase_b_motion, settings.int16_features, settings.motion_field, stats)
         oy[s], ox[s], use_pred[s] = y.cpu().numpy(), x.cpu().numpy(), u.cpu().numpy()
         psnr[s] = euclidean_to_psnr(e).cpu().numpy()
 

@@ -6,7 +6,9 @@ computed on the device (the multipliers are rebuilt here with the same
 numpy draws; a test holds them equal to the JAX package's). The host
 logic is the JAX package's line for line, so given the same motion PSNRs
 the corpus and its order are bit-identical: use count descending, ties
-on the content hash.
+on the content hash. Host-resident tiles (``pipeline/load.py``) are
+hashed on the device in slices of ``HASH_CHUNK`` tiles, and the corpus is
+gathered on the host, then uploaded.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from ..config import EncoderSettings
 from ..models.state import EncodeState
+from .load import to_device
 
 _RNG = np.random.RandomState(0x5EED)
 _C1 = (_RNG.randint(0, 1 << 31, 192) * 2 + 1).astype(np.int32)
@@ -48,8 +51,14 @@ def tile_hashes(tiles_u8: torch.Tensor) -> torch.Tensor:
     return poly_hashes(tiles_u8.reshape(-1, 192), _C1, _C2)
 
 
-def reduce_tiles(state: EncodeState, settings: EncoderSettings) -> EncodeState:
+def reduce_tiles(state: EncodeState, settings: EncoderSettings,
+                 device=None) -> EncodeState:
+    """``device``: where the hashes run and the corpus lives (default: the
+    tiles' device)."""
     F, N = state.n_frames, state.tilemap_size
+    tiles_flat = state.tiles_canon.reshape(F * N, 8, 8, 3)
+    host = isinstance(tiles_flat, np.ndarray)
+    dev = torch.device(device) if device is not None else tiles_flat.device
     tm = state.tilemap
     psnr = tm.psnr.astype(np.float64)
     kf_start = np.zeros(F, bool)
@@ -60,8 +69,11 @@ def reduce_tiles(state: EncodeState, settings: EncoderSettings) -> EncodeState:
 
     hh = state._hashes_prefetch
     state._hashes_prefetch = None
-    if hh is None:
-        hh = tile_hashes(state.tiles_canon)
+    if hh is None and host:
+        hh = torch.cat([tile_hashes(to_device(tiles_flat[i:i + HASH_CHUNK], dev)).cpu()
+                        for i in range(0, F * N, HASH_CHUNK)], dim=1)
+    elif hh is None:
+        hh = tile_hashes(tiles_flat)
     hh = hh.cpu().numpy()
     key = (hh[0].astype(np.int64) << 32) ^ (hh[1].astype(np.int64) & 0xFFFFFFFF)
     uniq_keys, first_idx, inverse = np.unique(key, return_index=True, return_inverse=True)
@@ -98,8 +110,10 @@ def reduce_tiles(state: EncodeState, settings: EncoderSettings) -> EncodeState:
     rank[order] = np.arange(len(order))
 
     rep_flat = first_idx[used_unique][order]
-    tiles_flat = state.tiles_canon.reshape(F * N, 8, 8, 3)
-    state.corpus_rgb = tiles_flat[torch.as_tensor(rep_flat, device=tiles_flat.device)]
+    if host:
+        state.corpus_rgb = to_device(tiles_flat[rep_flat], dev)
+    else:
+        state.corpus_rgb = tiles_flat[torch.as_tensor(rep_flat, device=dev)]
     state.corpus_use = counts[order]
     tile_idx = np.full(F * N, -1, np.int64)
     tile_idx[sel] = rank[sel_to_corpus]
