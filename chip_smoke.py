@@ -70,10 +70,32 @@ Run from the repository root:  python3 chip_smoke.py
    Encoder.load_video on the card: at scaling=1 the ingested frames are
    bit-identical to the host's y4m ingest; at scaling=2 they have the
    doubled size and reach 40 dB PSNR against the host's PIL Lanczos.
+8. Wide palettes and the other palette and dither settings, each path at
+   1280x720 (cut in length only) with the launch counts set to 0 just
+   before its encode and read just after:
+   - wide256: 16 palettes of 256 colors (a console's 256-color tile mode
+     with extended palettes), 8 frames: the corpus stays below the top-k
+     gate (the exact top-k runs), tk_select_wide must launch once; the
+     stream must read back through the port's GTMReader as 16 palettes
+     of 256 colors, every frame decoded;
+   - wide64: palettes of 64 colors, 32 frames: tk_select_wide once and
+     B2 57 times (T = 116,097, over the gate);
+   - plain_tk: use_pallas_tk=False, 32 frames, one encode: no tk_select
+     launch, and the default path's stream to the byte;
+   - mediancut_wavelets: color_quantizer="mediancut" with
+     dithering_mode="wavelets", 32 frames, one encode: PSNR-HVS and
+     bytes against the default, printed (another encoder: no gate).
+   Each prints T, the stages (of a second encode where there is one), the
+   peak of allocated device memory and the 2-opt's inner iterations a
+   round. Then tk_select_wide is held bit-identical to its plain version
+   at S = 33, 64, 128, 256 on random and adversarial tiles, and at each
+   wide path's launch (wide256's T, P = 16, S = 256 and wide64's T,
+   P = 1,024, S = 64), where both are timed; the kernels line gives the
+   wide256 figures and, under "shapes", each path's.
 
 Prints per-stage times, then a JSON line of the kernels, the card line,
 and last {"ok": true, "device": {...}}. Exits nonzero on any failure.
-Takes about two minutes on one H100, the kernels' build included.
+Takes about three and a half minutes on one H100, the kernels' build included.
 """
 import json
 import os
@@ -110,7 +132,13 @@ EXPECT_LAUNCHES = {"default": {"tk_select": 1, "knn_bucket_top2": 57},
                    "yliluoma2": {"tk_select": 0, "knn_bucket_top2": 57},
                    "research_int16": {"tk_select": 1},
                    "host_stream": {"tk_select": 1, "knn_bucket_top2": 57},
-                   "spill": {"tk_select": 1, "knn_bucket_top2": 57}}
+                   "spill": {"tk_select": 1, "knn_bucket_top2": 57},
+                   "wide256": {"tk_select": 0, "tk_select_wide": 1, "knn_bucket_top2": 0},
+                   "wide64": {"tk_select": 0, "tk_select_wide": 1, "knn_bucket_top2": 57},
+                   "plain_tk": {"tk_select": 0, "tk_select_wide": 0, "knn_bucket_top2": 57},
+                   "mediancut_wavelets": {"tk_select": 1, "knn_bucket_top2": 57}}
+# the wide kernel's palette sizes held against its plain version
+WIDE_S = (33, 64, 128, 256)
 # the clip's device bytes at 1280x720x32 (frames and canonical tiles, ~177
 # MB): the host paths set their budgets below it
 CLIP_BYTES = 32 * 720 * 1280 * 3 + 32 * 90 * 160 * 192
@@ -183,17 +211,35 @@ def _tk_same(torch, tk, args, what):
     return int((got.int() - want.int()).abs().max())
 
 
-def check_tk(torch, dev, T=CORPUS_T, P=1024, S=16):
-    from tiler_tpu_torch.kernels import _build
+def _tk_random(torch, dev, T, P, S, seed):
+    """Random tiles, mirrors, palette indexes and a palette table (90% of
+    the slots valid) on ``dev``."""
     from tiler_tpu_torch.kernels import tk_dither as tk
 
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     pix = torch.as_tensor(rng.integers(0, 256, (T, 64, 3), dtype=np.uint8), device=dev)
     mirror = torch.as_tensor(rng.integers(0, 4, T, dtype=np.uint8), device=dev)
     pidx = torch.as_tensor(rng.integers(0, P, T, dtype=np.int32), device=dev)
     pal = torch.as_tensor(rng.integers(0, 256, (P, S, 3), dtype=np.int32), device=dev)
     valid = torch.as_tensor(rng.random((P, S)) < 0.9, device=dev)
-    table = tk.pal_table(pal, valid)
+    return pix, mirror, pidx, tk.pal_table(pal, valid)
+
+
+def _tk_bound(tk, pix, mirror, pidx, table):
+    """tk_select's least time: bytes (each input once, the palette table
+    whole, the slots out) or ~14 integer operations per (pixel, step,
+    candidate color) at the fp32 rate, whichever is larger."""
+    T, S = pix.shape[0], table.shape[1]
+    n_bytes = pix.numel() + mirror.numel() + 4 * pidx.numel() + 4 * table.numel() + T * 64
+    triples = float(T) * 64 * tk.STEPS * S
+    return bound_ms(n_bytes, 14.0 * triples, FP32_OPS) + (triples,)
+
+
+def check_tk(torch, dev, T=CORPUS_T, P=1024, S=16):
+    from tiler_tpu_torch.kernels import _build
+    from tiler_tpu_torch.kernels import tk_dither as tk
+
+    pix, mirror, pidx, table = _tk_random(torch, dev, T, P, S, 1)
     err = _tk_same(torch, tk, (pix, mirror, pidx, table), "random tiles")
     # the adversarial tiles at the launch's size, then the wide
     # instantiation and a one-color palette at a smaller one
@@ -219,11 +265,7 @@ def check_tk(torch, dev, T=CORPUS_T, P=1024, S=16):
     ms = cuda_ms(lambda: tk.tk_select(pix, mirror, pidx, table), 20)
     clock = sm_clock_hz()  # read while the card is still clocked up
     plain_ms = cuda_ms(lambda: tk.tk_select_plain(pix, mirror, pidx, table), 3)
-    # bytes: each input once (the palette table whole), the slots out;
-    # operations: ~14 integer ops per (pixel, step, candidate colour)
-    n_bytes = pix.numel() + mirror.numel() + 4 * pidx.numel() + 4 * table.numel() + T * 64
-    triples = float(T) * 64 * tk.STEPS * S
-    bms, by = bound_ms(n_bytes, 14.0 * triples, FP32_OPS)
+    bms, by, triples = _tk_bound(tk, pix, mirror, pidx, table)
     issue_ms = 1e3 * TK_ISSUE_SLOTS * triples / (128 * SM_COUNT * clock)
     int32_ms = 1e3 * TK_INT32_RESULTS * triples / (64 * SM_COUNT * clock)
     used = [r for r in _build.kernel_resources("tk_select_kernel") if "Li16E" in r["function"]]
@@ -241,6 +283,72 @@ def check_tk(torch, dev, T=CORPUS_T, P=1024, S=16):
             "int32_floor_ms": int32_ms, "sm_clock_mhz": clock / 1e6,
             "registers": res and res["registers"],
             "spill_bytes": res and res["spill_store_bytes"] + res["spill_load_bytes"]}
+
+
+def check_tk_wide(torch, dev, launches):
+    """tk_select_wide (S = 33..256) against its plain version: bit-
+    identical at every S of WIDE_S on 1,001 random tiles (a partly empty
+    last block) and on the adversarial ones, then at each wide path's
+    launch, ``launches`` {path: (T, P, S)}, timed there. Returns the first
+    path's figures, with every path's under "shapes"."""
+    from tiler_tpu_torch.kernels import _build
+    from tiler_tpu_torch.kernels import tk_dither as tk
+
+    for s in WIDE_S:
+        _tk_same(torch, tk, _tk_random(torch, dev, 1001, 7, s, s), f"random tiles, S={s}")
+        case = tk.adversarial_case(s, seed=s, reps=10)
+        args = [torch.as_tensor(a, device=dev) for a in case[:3]]
+        args.append(tk.pal_table(torch.as_tensor(case[3], device=dev),
+                                 torch.as_tensor(case[4], device=dev)))
+        _tk_same(torch, tk, args, f"the adversarial tiles, S={s}")
+        print(f"tk_select_wide: 1001 random and {len(case[0])} adversarial tiles S={s}: "
+              "bit-identical", flush=True)
+    used = _build.kernel_resources("tk_select_wide_kernel")
+    res = used[0] if used else None
+    shapes = []
+    for path, (T, P, S) in launches.items():
+        pix, mirror, pidx, table = _tk_random(torch, dev, T, P, S, 5)
+        err = _tk_same(torch, tk, (pix, mirror, pidx, table), f"random tiles, S={S}")
+        ms = cuda_ms(lambda: tk.tk_select_wide(pix, mirror, pidx, table), 5)
+        plain_ms = cuda_ms(lambda: tk.tk_select_plain(pix, mirror, pidx, table), 1)
+        bms, by, _ = _tk_bound(tk, pix, mirror, pidx, table)
+        print(f"tk_select_wide at {path}'s launch, {T} tiles P={P} S={S}: bit-identical; "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), "
+              f"{bms / ms:.1%} of the bound; "
+              + (f"ptxas: {res['registers']} registers, {res['spill_store_bytes']} / "
+                 f"{res['spill_load_bytes']} bytes of spill stores / loads, "
+                 f"{res['stack_bytes']} bytes of stack" if res else "ptxas: not built here"),
+              flush=True)
+        shapes.append({"path": path, "T": T, "P": P, "S": S, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by})
+        del pix, mirror, pidx, table
+        torch.cuda.empty_cache()
+    return {**{k: shapes[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by")},
+            "library_ms": None, "registers": res and res["registers"],
+            "spill_bytes": res and res["spill_store_bytes"] + res["spill_load_bytes"],
+            "shapes": shapes}
+
+
+def read_back(palettes: int, size: int):
+    """encode_path's after-hook of the wide paths: the stream, read by the
+    port's own GTMReader, says ``palettes`` palettes of ``size`` colors
+    and holds every frame (encode_path decodes them all)."""
+    from tiler_tpu_torch.bitstream.gtm import GTMReader
+
+    def check(enc, stream):
+        g = GTMReader.read(stream)
+        got = (g.palette_size, len(g.palettes_rgb), len(g.frames))
+        if got != (size, palettes, enc.state.n_frames):
+            raise AssertionError(f"the stream reads back as (palette_size, palettes, frames) "
+                                 f"{got}, not {(size, palettes, enc.state.n_frames)}")
+        print(f"read back with GTMReader: {palettes} palettes of {size} colors, "
+              f"{len(g.frames)} frames, {g.tile_count} tiles, largest slot "
+              f"{int(g.tiles_pal.max())}", flush=True)
+        return {"read_back": {"palette_size": g.palette_size, "palettes": len(g.palettes_rgb),
+                              "frames": len(g.frames), "tiles": g.tile_count}}
+
+    return check
 
 
 def _key_agreement(torch, pairs, N, decode):
@@ -405,11 +513,13 @@ def encode_path(name, settings, kernels, F=32, H=720, W=1280, min_corpus=65536,
     T = enc.step_stats["corpus_tiles"]
     print(f"[{name}] encode {W}x{H}x{F}: {wall:.3f} s; stages "
           + " ".join(f"{k}={v:.3f}" for k, v in enc.timings.items()), flush=True)
+    inner = enc.step_stats["two_opt_inner"]
     print(f"[{name}] corpus T={T}, cells through a top-k kernel="
           f"{enc.step_stats['knn_kernel_cells']}, launches {counts}, PSNR-HVS "
           f"{st.total_psnr:.4f} dB, {enc.stats.total_bytes} bytes, {len(st.keyframes)} "
           f"keyframes, phase B re-searches {enc.step_stats['phase_b_searches']}, peak "
-          f"device memory allocated {peak} bytes", flush=True)
+          f"device memory allocated {peak} bytes, 2-opt inner iterations "
+          f"{sum(inner)} in {len(inner)} rounds {inner}", flush=True)
     if T < min_corpus:
         raise AssertionError(f"corpus of {T} tiles is below the knn kernels' gate {min_corpus}")
     for kname in kernels:
@@ -445,7 +555,7 @@ def encode_path(name, settings, kernels, F=32, H=720, W=1280, min_corpus=65536,
            "psnr_rgb_db": psnr_rgb, "bytes": enc.stats.total_bytes,
            "keyframes": len(st.keyframes),
            "phase_b_searches": enc.step_stats["phase_b_searches"], "peak_bytes": peak,
-           "stream": open(stream, "rb").read()}
+           "two_opt_inner": inner, "stream": open(stream, "rb").read()}
     if after is not None:
         out.update(after(enc, stream))
     if not again:
@@ -734,6 +844,41 @@ def y4m_device_ingest(F=8, H=288, W=352):
     return out
 
 
+def wide_paths(default):
+    """The wide palettes and the other palette and dither settings (point
+    8 of the module docstring), each against the default encode."""
+    from tiler_tpu_torch.config import EncoderSettings
+
+    out = {"wide256": encode_path(
+        "wide256", EncoderSettings(palette_count=16, palette_size=256), ("tk_select_wide",),
+        F=8, min_corpus=0, after=read_back(16, 256))}
+    check_against_reference("wide256", out["wide256"], corpus=None)
+    out["wide64"] = encode_path("wide64", EncoderSettings(palette_size=64),
+                                ("tk_select_wide", "knn_bucket_top2"), after=read_back(1024, 64))
+    check_against_reference("wide64", out["wide64"])
+    out["plain_tk"] = encode_path("plain_tk", EncoderSettings(use_pallas_tk=False),
+                                  ("knn_bucket_top2",), again=False)
+    check_against_reference("plain_tk", out["plain_tk"])
+    if out["plain_tk"]["stream"] != default["stream"]:
+        raise AssertionError("the plain Thomas Knoll path wrote another stream than tk_select")
+    out["mediancut_wavelets"] = encode_path(
+        "mediancut_wavelets", EncoderSettings(color_quantizer="mediancut",
+                                              dithering_mode="wavelets"),
+        ("tk_select", "knn_bucket_top2"), again=False)
+    check_against_reference("mediancut_wavelets", out["mediancut_wavelets"])
+    for name, run in out.items():
+        print(f"[{name}] against the default: PSNR-HVS "
+              f"{run['psnr_hvs_db'] - default['psnr_hvs_db']:+.4f} dB, bytes "
+              f"{(run['bytes'] - default['bytes']) / default['bytes']:+.4%}, peak device memory "
+              f"allocated {run['peak_bytes']} bytes"
+              + (", stream identical" if run["stream"] == default["stream"] else ""), flush=True)
+    for name in ("wide256", "wide64"):
+        print(f"[{name}] second encode, stage (s): {name} / default: "
+              + " ".join(f"{k}={v:.3f}/{default['second_stage_s'][k]:.3f}"
+                         for k, v in out[name]["second_stage_s"].items()), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -821,6 +966,14 @@ def main() -> int:
                         ("tk_select", "knn_bucket_top2"), again=False, after=host_check(True))
     check_host_path("spill", spill, default)
     torch.cuda.empty_cache()
+    wide = wide_paths(default)
+    torch.cuda.empty_cache()
+    checks["tk_select_wide"] = check_tk_wide(
+        torch, dev, {"wide256": (wide["wide256"]["corpus_tiles"], 16, 256),
+                     "wide64": (wide["wide64"]["corpus_tiles"], 1024, 64)})
+    for shape in checks["tk_select_wide"]["shapes"]:
+        shape["launches"] = wide[shape["path"]]["launches"]["tk_select_wide"]
+    torch.cuda.empty_cache()
     knn_on_encode_data()
     small_clip_agreement()
     small_clip_agreement(dithering_use_thomas_knoll=False)
@@ -831,9 +984,11 @@ def main() -> int:
 
     # each kernel's launches: from the encode of the path that it serves
     # (tk_select serves both; its count is the default path's)
-    path_of = {"tk_select": default, "knn_bucket_top2": default,
-               "knn_bucket_top2_v1": im2row_v1, "blockify_field": im2row_v1}
+    path_of = {"tk_select": default, "tk_select_wide": wide["wide256"],
+               "knn_bucket_top2": default, "knn_bucket_top2_v1": im2row_v1,
+               "blockify_field": im2row_v1}
     sources = {"tk_select": ("tk_dither.cu", "tiler_tpu/kernels/tk_dither.py:147"),
+               "tk_select_wide": ("tk_dither.cu", "tiler_tpu/kernels/tk_dither.py:147"),
                "knn_bucket_top2": ("knn_topk.cu", "tiler_tpu/kernels/knn_topk.py:149"),
                "knn_bucket_top2_v1": ("knn_topk.cu", "tiler_tpu/kernels/knn_topk.py:204"),
                "blockify_field": ("blockify.cu", "tiler_tpu/kernels/blockify.py:46")}
@@ -843,9 +998,11 @@ def main() -> int:
          **{key: checks[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms")},
          # tk_select also: its issue-rate floors, the clock they were taken
-         # at, and ptxas's registers and spill
+         # at, and ptxas's registers and spill; tk_select_wide its figures
+         # at each wide path's launch
          **{key: checks[name][key] for key in ("issue_floor_ms", "int32_floor_ms",
-                                               "sm_clock_mhz", "registers", "spill_bytes")
+                                               "sm_clock_mhz", "registers", "spill_bytes",
+                                               "shapes")
             if key in checks[name]}}
         for name, (src, replaces) in sources.items()]
     print(f"chip_smoke: every phase passed in {time.monotonic() - t_start:.1f} s", flush=True)

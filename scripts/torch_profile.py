@@ -32,6 +32,32 @@ pays the start-up costs). --root DIR imports tiler_tpu_torch from another
 checkout (an unpacked parent commit, say), so that two commits can be
 timed in turns within one call on one card.
 
+    python3 scripts/torch_profile.py --tk-wide
+
+instead times tk_select by CUDA events at the main path's corpus (T =
+116,097 tiles, P = 1,024 palettes) for S = 16 (the narrow kernel) and
+S = 33, 64, 128, 256 (tk_select_wide), on random tiles and palettes,
+each beside its bound (~14 integer operations per pixel, step and
+candidate color at the 67 TFLOP/s fp32 rate); the kernel's time does not
+depend on the data.
+
+    python3 scripts/torch_profile.py --wide-memory [FRAMES ...]
+
+instead encodes 1280x720xFRAMES synthetic clips (8, 16, 32, 48 and 64 frames
+by default) at palette_count=16, palette_size=256, once each, and prints
+for each the corpus size T, the peak of allocated device memory, the wall
+time and the stage split, the peak of reserved device memory and the
+caching allocator's retries (a retry frees the cache and synchronizes);
+an encode that runs out of device memory is
+printed with its T and the run goes on. The EPU tables grow with T
+(394,752 bytes of Q and 32,768 of G a tile at S = 256), so this finds the
+largest corpus that fits the card at the widest palette.
+
+    python3 scripts/torch_profile.py --wide-profile
+
+instead profiles the widest palette's encode as the default mode profiles
+the two paths: palette_count=16, palette_size=256 on the 1280x720x32 clip.
+
     python3 scripts/torch_profile.py --long-clip [FRAMES]
 
 instead encodes a long synthetic clip, 1280x720x1600 by default (64 s at
@@ -71,7 +97,8 @@ PATHS = {
 
 
 # the device functions of tiler_tpu_torch/csrc
-OWN_KERNELS = ("knn_top2_wgmma", "tk_select_kernel", "blockify_kernel")
+OWN_KERNELS = ("knn_top2_wgmma", "tk_select_kernel", "tk_select_wide_kernel",
+               "blockify_kernel")
 
 
 def _device_us(evt) -> float:
@@ -216,6 +243,52 @@ def encode_times(clip, reps=3):
                   flush=True)
 
 
+def tk_wide(T=116097, P=1024, reps=5):
+    from tiler_tpu_torch.kernels import tk_dither as tk
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    dev = torch.device("cuda")
+    for S in (16, 33, 64, 128, 256):
+        args = cs._tk_random(torch, dev, T, P, S, S)
+        ms = cs.cuda_ms(lambda: tk.tk_select(*args), reps)
+        bms, by, _ = cs._tk_bound(tk, *args)
+        kname = "tk_select" if S <= tk.NARROW_S else "tk_select_wide"
+        print(f"[tk wide] {kname} T={T} P={P} S={S}: {ms:.3f} ms, bound {bms:.3f} ms ({by}), "
+              f"{bms / ms:.1%} of the bound", flush=True)
+
+
+def wide_memory(frames=(8, 16, 32, 48, 64), H=720, W=1280):
+    out = os.path.join(ROOT, "build", "torch_profile")
+    os.makedirs(out, exist_ok=True)
+    settings = EncoderSettings(palette_count=16, palette_size=256)
+    for F in frames:
+        clip = synthetic_clip(F, H, W)
+        enc = Encoder(settings, device="cuda", log=None)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.reset_accumulated_memory_stats()
+        t0 = time.monotonic()
+        try:
+            enc.run_all(clip, fps=25.0, out_path=os.path.join(out, f"wide256_{F}.gtm"))
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"[wide memory] {W}x{H}x{F}: out of device memory after "
+                  f"{time.monotonic() - t0:.1f} s, T={len(enc.state.corpus_rgb)}, "
+                  f"stages {enc.timings}, peak allocated {torch.cuda.max_memory_allocated()} "
+                  f"bytes: {str(e).splitlines()[0]}", flush=True)
+        else:
+            print(f"[wide memory] {W}x{H}x{F}: T={enc.step_stats['corpus_tiles']}, peak "
+                  f"device memory allocated {torch.cuda.max_memory_allocated()} bytes "
+                  f"(reserved {torch.cuda.max_memory_reserved()}, allocator retries "
+                  f"{torch.cuda.memory_stats().get('num_alloc_retries', 0)}), "
+                  f"encode {time.monotonic() - t0:.3f} s; stages "
+                  + " ".join(f"{k}={v:.3f}" for k, v in enc.timings.items())
+                  + f"; PSNR-HVS {enc.state.total_psnr:.4f} dB, {enc.stats.total_bytes} bytes",
+                  flush=True)
+        del enc, clip
+        torch.cuda.empty_cache()
+
+
 def _host_peak_bytes(reset=False):
     """The process's peak resident memory since the last reset (Linux's
     VmHWM, which writing 5 to clear_refs resets), or ru_maxrss, the peak
@@ -282,11 +355,21 @@ def main() -> int:
     if "--knn-breakdown" in sys.argv[1:]:
         knn_breakdown()
         return 0
+    if "--tk-wide" in sys.argv[1:]:
+        tk_wide()
+        return 0
+    if "--wide-memory" in sys.argv[1:]:
+        rest = [int(a) for a in sys.argv[sys.argv.index("--wide-memory") + 1:] if a.isdigit()]
+        wide_memory(*([tuple(rest)] if rest else []))
+        return 0
     if "--long-clip" in sys.argv[1:]:
         rest = sys.argv[sys.argv.index("--long-clip") + 1:]
         long_clip(int(rest[0]) if rest and rest[0].isdigit() else 1600)
         return 0
     clip = synthetic_clip(32, 720, 1280)
+    if "--wide-profile" in sys.argv[1:]:
+        profile_path("wide256", EncoderSettings(palette_count=16, palette_size=256), clip)
+        return 0
     if "--encode-times" in sys.argv[1:]:
         encode_times(clip)
         return 0

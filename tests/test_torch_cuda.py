@@ -87,6 +87,72 @@ def test_tk_kernel_truncations_are_exact(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [33, 64, 128, 256])
+@pytest.mark.parametrize("T", [1, 3, 4 * 33 + 1])
+def test_tk_wide_kernel_matches_plain(cuda, S, T):
+    """The wide kernel (S = 33..256) on random tiles, in tile counts that
+    leave a block partly empty, one palette without a valid color:
+    bit-identical, one launch of tk_select_wide and none of tk_select."""
+    args = _tk_args(T, 3, S, S + T, "cpu")
+    table = args[3].clone()
+    table[1, :, 4] = 0  # palette 1 has no valid color
+    args[2][0] = 1
+    want = t_tk.tk_select_plain(*args[:3], table)
+    before = (t_tk.tk_select.launches, t_tk.tk_select_wide.launches)
+    got = t_tk.tk_select(*(a.to(cuda) for a in args[:3]), table.to(cuda))
+    torch.cuda.synchronize()
+    assert (t_tk.tk_select.launches, t_tk.tk_select_wide.launches) == (before[0],
+                                                                       before[1] + 1)
+    assert torch.equal(got.cpu(), want)
+    assert (want[0] == 0).all()  # the palette without a valid color gives slot 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [33, 64, 128, 256])
+def test_tk_wide_kernel_adversarial_cases(cuda, S):
+    """Equal lumas across every slot (98 distinct colors), duplicates,
+    one or no valid slot, worst-case error growth: bit-identical."""
+    pix, mirror, pidx, pal, valid = t_tk.adversarial_case(S, seed=S)
+    args = [torch.as_tensor(a) for a in (pix, mirror, pidx)]
+    table = t_tk.pal_table(torch.as_tensor(pal), torch.as_tensor(valid))
+    want = t_tk.tk_select_plain(*args, table)
+    got = t_tk.tk_select_wide(*(a.to(cuda) for a in args), table.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 64])
+def test_plain_thomas_knoll_path_on_the_card_matches_the_kernel(cuda, S):
+    """use_pallas_tk=False on the card (plain tensor passes, no launch)
+    gives the kernel's slots on one small clip's corpus."""
+    import copy
+    import dataclasses
+
+    from tiler_tpu_torch.config import EncoderSettings
+    from tiler_tpu_torch.models.convert import state_from_numpy, state_to_numpy
+    from tiler_tpu_torch.pipeline import dither as t_dither
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.utils.clips import synthetic_clip
+
+    settings = EncoderSettings(palette_count=8, palette_size=S, motion_predict_radius=4,
+                               epu_knn_k=8, kmeans_iters=4)
+    enc = Encoder(settings, device="cpu", log=None)
+    enc.load_frames(synthetic_clip(4, 64, 96), 25.0)
+    enc.predict_motion().reduce().prepare_palettes()
+    snap = state_to_numpy(copy.copy(enc.state))
+    got = {}
+    for use_kernel in (True, False):
+        before = t_tk.tk_select.launches + t_tk.tk_select_wide.launches
+        st = t_dither.dither(state_from_numpy(copy.copy(snap), cuda),
+                             dataclasses.replace(settings, use_pallas_tk=use_kernel))
+        torch.cuda.synchronize()
+        assert t_tk.tk_select.launches + t_tk.tk_select_wide.launches == before + use_kernel
+        got[use_kernel] = st.corpus_pal_pixels.cpu()
+    assert torch.equal(got[True], got[False])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mixed", [1, 4])
 def test_yliluoma2_on_the_card_matches_the_cpu(cuda, mixed):
     """All int32: the selected slots of a small chunk are bit-identical."""

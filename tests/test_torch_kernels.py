@@ -249,8 +249,9 @@ def test_tk_wrapper_rejects_bad_arguments():
         t_tk.tk_select(pix, mirror, pal_idx.long(), table)
     with pytest.raises(ValueError, match="pal_idx outside"):
         t_tk.tk_select(pix, mirror, pal_idx + 7, table)
+    # GTM writes a slot as a byte: S = 33..256 runs the wide kernel, 257 none
     with pytest.raises(ValueError, match="palette size"):
-        t_tk.tk_select(pix, mirror, pal_idx, torch.zeros(2, 33, 8, dtype=torch.int32))
+        t_tk.tk_select(pix, mirror, pal_idx, torch.zeros(2, 257, 8, dtype=torch.int32))
     with pytest.raises(ValueError, match="no kernel"):
         t_tk.tk_select(*(a.to("meta") for a in (pix, mirror, pal_idx, table)))
 
@@ -318,13 +319,14 @@ def test_knn_wrapper_rejects_bad_arguments():
 
 def test_plain_versions_count_no_launches():
     reset_launch_counts()
-    tiles, pidx, pal, valid, hm, vm = _tk_case(T=4, P=2, S=4)
-    t_tk.tk_select(*_tk_port(tiles, pidx, pal, valid, hm, vm))
+    for S in (4, 40):  # the narrow and the wide kernel's plain version
+        tiles, pidx, pal, valid, hm, vm = _tk_case(T=4, P=2, S=S)
+        t_tk.tk_select(*_tk_port(tiles, pidx, pal, valid, hm, vm))
     t_knn.knn_bucket_top2(torch.zeros(t_knn.CELL_BLOCK, t_knn.KDA, dtype=torch.bfloat16),
                           torch.zeros(t_knn.KDA, 512, dtype=torch.bfloat16))
     t_knn.knn_bucket_top2_v1(torch.zeros(t_knn.CELL_BLOCK, t_knn.KD, dtype=torch.bfloat16),
                              torch.zeros(t_knn.KD, 512, dtype=torch.bfloat16),
                              torch.zeros(512))
     t_blk.blockify_field(torch.zeros(16, 16, 8, dtype=torch.bfloat16))
-    assert launch_counts() == {"tk_select": 0, "knn_bucket_top2": 0,
+    assert launch_counts() == {"tk_select": 0, "tk_select_wide": 0, "knn_bucket_top2": 0,
                                "knn_bucket_top2_v1": 0, "blockify_field": 0}

@@ -148,8 +148,10 @@ def test_metrics():
 
 
 # each case keeps the id it had before the settings ported since left
-# the list (int16_features-6, host_ram_budget-10, hbm_frames_budget-14
-# are accepted now; phase_b_motion-7 is an unknown mode)
+# the list (int16_features-6, host_ram_budget-10, hbm_frames_budget-14,
+# use_pallas_tk-12 and palette sizes up to 256 are accepted now;
+# phase_b_motion-7, color_quantizer-9 and dithering_mode-13 are unknown
+# names, palette_size-16 and -17 sizes a byte cannot index)
 OFF_SLICE = [
     ("knn_backend-0", "knn_backend", dict(knn_backend="ivf")),
     ("knn_backend-1", "knn_backend", dict(knn_backend="pallas_v3")),  # no such backend
@@ -161,11 +163,12 @@ OFF_SLICE = [
     # Yliluoma2 itself is ported: only a plan size it cannot hold is refused
     ("dithering_use_thomas_knoll-8", "dithering_use_thomas_knoll",
      dict(dithering_use_thomas_knoll=False, dithering_yliluoma2_mixed_colors=0)),
-    ("color_quantizer-9", "color_quantizer", dict(color_quantizer="mediancut")),
+    ("color_quantizer-9", "color_quantizer", dict(color_quantizer="octree")),  # no such one
     ("scaling-11", "scaling", dict(scaling=0.0)),  # any positive factor resamples
-    ("use_pallas_tk-12", "use_pallas_tk", dict(use_pallas_tk=False)),
-    ("dithering_mode-13", "dithering_mode", dict(dithering_mode="wavelets")),
+    ("dithering_mode-13", "dithering_mode", dict(dithering_mode="haar")),  # no such mode
     ("mesh-15", "mesh", None),
+    ("palette_size-16", "palette_size", dict(palette_size=0)),
+    ("palette_size-17", "palette_size", dict(palette_size=257)),
 ]
 
 
@@ -187,7 +190,11 @@ SMALL = dict(palette_count=4, motion_predict_radius=2, epu_knn_k=4, kmeans_iters
 # settings ported since they stood in OFF_SLICE: each encodes a tiny clip
 ENCODED = {"int16": dict(int16_features=True), "research": dict(phase_b_motion="research"),
            "host_ram_budget": dict(host_ram_budget=1e9, hbm_frames_budget=1),
-           "hbm_frames_budget": dict(hbm_frames_budget=1000.0)}
+           "hbm_frames_budget": dict(hbm_frames_budget=1000.0),
+           "use_pallas_tk-12": dict(use_pallas_tk=False),
+           "color_quantizer-9": dict(color_quantizer="mediancut"),
+           "dithering_mode-13": dict(dithering_mode="wavelets"),
+           "palette_size-64": dict(palette_size=64), "palette_size-256": dict(palette_size=256)}
 
 
 @pytest.mark.parametrize("overrides", [

@@ -19,8 +19,8 @@ GTMDecoder replicates gtm.player.js's playback semantics exactly (four
 pre-mirrored tile copies, cyclic intra-tile slots, double-buffered motion
 prediction) and is the in-repo conformance oracle for encoder output.
 
-The port's own copy of ``tiler_tpu/bitstream/gtm.py``'s writer and
-decoder (the structured reader for re-imports is not ported).
+The port's own copy of ``tiler_tpu/bitstream/gtm.py``: the writer, the
+structured reader (GTMFile, GTMReader) and the decoder, byte for byte.
 """
 from __future__ import annotations
 
@@ -478,6 +478,32 @@ class GTMWriter:
 # --------------------------------------------------------------------------
 
 
+@dataclass
+class GTMFile:
+    """Structured re-import of a .gtm (LoadStream parity, :4880-5175)."""
+
+    width: int = 0  # pixels
+    height: int = 0
+    fps: float = 0.0
+    tile_count: int = 0  # declared in SetDimensions
+    tileset_count: int = 0  # tiles actually present in the TileSet command
+    palette_size: int = 0
+    settings_text: str = ""
+    tiles_pal: Optional[np.ndarray] = None  # [T, 8, 8] uint8
+    palettes_rgb: Optional[np.ndarray] = None  # [P, S, 3]
+    frames: List[FrameCommands] = field(default_factory=list)
+    keyframe_end: List[bool] = field(default_factory=list)
+    header: Optional[dict] = None
+
+    @property
+    def tilemap_w(self):
+        return self.width // TILE_W
+
+    @property
+    def tilemap_h(self):
+        return self.height // TILE_W
+
+
 class _ByteReader:
     __slots__ = ("b", "p")
 
@@ -547,6 +573,167 @@ def parse_header(raw: bytes) -> dict:
         kf_max_bytes_per_sec=kfmax,
         keyframes=kfs,
     )
+
+
+class GTMReader:
+    """Parse a .gtm back into tiles/palettes/tilemap commands."""
+
+    @staticmethod
+    @_format_guard
+    def read(path_or_bytes) -> GTMFile:
+        raw = path_or_bytes if isinstance(path_or_bytes, (bytes, bytearray)) else open(path_or_bytes, "rb").read()
+        g = GTMFile()
+        off = 0
+        if raw[:4] == b"GTMv":
+            g.header = parse_header(raw)
+            off = g.header["whole_header_size"]
+
+        intra_count = 0
+        payloads = lzma_codec.split_streams(raw[off:])
+        for kf_payload in payloads:
+            r = _ByteReader(kf_payload)
+            cur = None  # current frame dict of lists
+            tm_pos = 0
+
+            def new_frame():
+                n = g.tilemap_w * g.tilemap_h
+                return dict(
+                    tile_idx=np.full(n, -1, np.int64),
+                    pal_idx=np.full(n, -1, np.int64),
+                    predicted=np.zeros(n, bool),
+                    pred_x=np.zeros(n, np.int32),
+                    pred_y=np.zeros(n, np.int32),
+                    hmirror=np.zeros(n, bool),
+                    vmirror=np.zeros(n, bool),
+                )
+
+            while not r.eof:
+                word = r.u16()
+                cmd = word & ((1 << CMD_CODE_BITS) - 1)
+                data = word >> CMD_CODE_BITS
+                if cmd == GTM_COMMANDS.ExtendedCommand:
+                    n = r.u32()
+                    blob = r.raw(n)
+                    if data == 0 and not g.settings_text:
+                        g.settings_text = blob.decode("latin1")
+                elif cmd == GTM_COMMANDS.SetDimensions:
+                    g.width = r.u16() * TILE_W
+                    g.height = r.u16() * TILE_W
+                    ns = r.u32()
+                    g.fps = 1e9 / ns if ns else 0.0
+                    g.tile_count = r.u32()
+                    # reject corrupt declarations by allocation BYTES
+                    # (64 B/tile storage; ~27 B/cell/frame tilemap
+                    # arrays), capped at 64x the total payload with a
+                    # 1 GiB floor — see the same guard in decode_frames
+                    total = sum(len(p) for p in payloads)
+                    cells = g.tilemap_w * g.tilemap_h
+                    if (g.tile_count > total
+                            or g.tile_count * 64 + cells * 32
+                            > max(1 << 30, 64 * total)):
+                        raise GTMFormatError(
+                            f"implausible dimensions {g.width}x{g.height}"
+                            f"/{g.tile_count}")
+                    g.tiles_pal = np.zeros((max(g.tile_count, 1), TILE_W, TILE_W), np.uint8)
+                    intra_count = 0
+                elif cmd == GTM_COMMANDS.TileSet:
+                    g.palette_size = data
+                    t0 = r.u32()
+                    t1 = r.u32()
+                    n = t1 - t0 + 1
+                    arr = np.frombuffer(r.raw(n * TILE_SIZE), np.uint8)
+                    g.tiles_pal[t0 : t1 + 1] = arr.reshape(n, TILE_W, TILE_W)
+                    g.tileset_count = max(g.tileset_count, t1 + 1)
+                elif cmd == GTM_COMMANDS.LoadPalette:
+                    pi = r.u16()
+                    rgba = np.frombuffer(r.raw(g.palette_size * 4), np.uint8).reshape(-1, 4)
+                    if g.palettes_rgb is None or len(g.palettes_rgb) <= pi:
+                        newp = np.zeros((pi + 1, g.palette_size, 3), np.uint8)
+                        if g.palettes_rgb is not None:
+                            newp[: len(g.palettes_rgb)] = g.palettes_rgb
+                        g.palettes_rgb = newp
+                    g.palettes_rgb[pi] = rgba[:, :3]
+                elif cmd == GTM_COMMANDS.FrameEnd:
+                    if cur is None:
+                        cur = new_frame()
+                    g.frames.append(
+                        FrameCommands(
+                            tile_idx=cur["tile_idx"],
+                            pal_idx=cur["pal_idx"],
+                            predicted=cur["predicted"],
+                            pred_x=cur["pred_x"],
+                            pred_y=cur["pred_y"],
+                            hmirror=cur["hmirror"],
+                            vmirror=cur["vmirror"],
+                        )
+                    )
+                    g.keyframe_end.append(bool(data & 1))
+                    cur = None
+                    tm_pos = 0
+                    if data & 1:
+                        break
+                elif cmd == GTM_COMMANDS.SkipBlock:
+                    if cur is None:
+                        cur = new_frame()
+                    n = data + 1
+                    cur["predicted"][tm_pos : tm_pos + n] = True
+                    tm_pos += n
+                elif cmd in (
+                    GTM_COMMANDS.ShortTileIdxShortPalIdx,
+                    GTM_COMMANDS.LongTileIdxShortPalIdx,
+                    GTM_COMMANDS.LongTileIdxLongPalIdx,
+                ):
+                    if cmd == GTM_COMMANDS.LongTileIdxLongPalIdx:
+                        pal = r.u16()
+                    else:
+                        pal = (data >> 2) & (SHORT_PAL_LIMIT - 1)
+                    if cmd == GTM_COMMANDS.ShortTileIdxShortPalIdx:
+                        tile = r.u16()
+                    else:
+                        tile = r.u32()
+                    if cur is None:
+                        cur = new_frame()
+                    cur["tile_idx"][tm_pos] = tile
+                    cur["pal_idx"][tm_pos] = pal
+                    cur["hmirror"][tm_pos] = bool(data & 1)
+                    cur["vmirror"][tm_pos] = bool(data & 2)
+                    tm_pos += 1
+                elif cmd == GTM_COMMANDS.PredictedTileShortOffsets:
+                    if cur is None:
+                        cur = new_frame()
+                    cur["pred_x"][tm_pos] = (data & 31) - (data & 32)
+                    cur["pred_y"][tm_pos] = ((data >> 6) & 31) - ((data >> 6) & 32)
+                    cur["predicted"][tm_pos] = True
+                    tm_pos += 1
+                elif cmd == GTM_COMMANDS.PredictedTileLongOffsets:
+                    if cur is None:
+                        cur = new_frame()
+                    ox = r.u8()
+                    oy = r.u8()
+                    cur["pred_x"][tm_pos] = (ox & 127) - (ox & 128)
+                    cur["pred_y"][tm_pos] = (oy & 127) - (oy & 128)
+                    cur["predicted"][tm_pos] = True
+                    tm_pos += 1
+                elif cmd == GTM_COMMANDS.IntraTile:
+                    pal = r.u16()
+                    slot = g.tile_count + intra_count
+                    intra_count += 1
+                    if slot >= len(g.tiles_pal):
+                        g.tiles_pal = np.concatenate(
+                            [g.tiles_pal, np.zeros_like(g.tiles_pal[: max(len(g.tiles_pal), 64)])]
+                        )
+                    arr = np.frombuffer(r.raw(TILE_SIZE), np.uint8)
+                    g.tiles_pal[slot] = arr.reshape(TILE_W, TILE_W)
+                    if cur is None:
+                        cur = new_frame()
+                    cur["tile_idx"][tm_pos] = slot
+                    cur["pal_idx"][tm_pos] = pal
+                    cur["hmirror"][tm_pos] = bool(data & 1)
+                    cur["vmirror"][tm_pos] = bool(data & 2)
+                    tm_pos += 1
+                else:
+                    raise GTMFormatError(f"unknown GTM command {cmd}")
+        return g
 
 
 class GTMDecoder:

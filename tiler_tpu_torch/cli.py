@@ -2,6 +2,9 @@
 
   python -m tiler_tpu_torch <settings.ini>             full encode
   python -m tiler_tpu_torch encode -i IN -o OUT [...]  encode with flags
+  python -m tiler_tpu_torch decode IN.gtm OUT.y4m      decode to Y4M (or PNGs)
+  python -m tiler_tpu_torch info IN.gtm [--full]       header (and stream) dump
+  python -m tiler_tpu_torch selftest                   math invariants
 
 Settings files are the JAX package's (``EncoderSettings.from_ini``). The
 device is ``cuda`` unless ``--device`` names another.
@@ -9,7 +12,12 @@ device is ``cuda`` unless ``--device`` names another.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
+
+import numpy as np
+
+SUBCOMMANDS = ("encode", "decode", "info", "selftest")
 
 
 def _settings(path, overrides):
@@ -41,9 +49,67 @@ def cmd_encode(args):
     return 0
 
 
+def cmd_decode(args):
+    """Every frame of a .gtm, to a C444 Y4M (at 24 fps, as the JAX
+    package's CLI writes it) or to ``<base>_%04d.png``."""
+    from .bitstream.gtm import GTMDecoder
+
+    frames = GTMDecoder(args.input).decode_frames()
+    if args.output.endswith(".y4m"):
+        from .io.export import write_y4m
+
+        write_y4m(args.output, [f[..., :3] for f in frames], 24.0)
+    else:
+        from .io.export import write_pngs
+
+        write_pngs(args.output, frames)
+    print(f"decoded {len(frames)} frames")
+    return 0
+
+
+def cmd_info(args):
+    """The header as JSON; with ``--full`` the structured read too."""
+    from .bitstream.gtm import GTMReader, parse_header
+
+    with open(args.input, "rb") as f:
+        raw = f.read()
+    print(json.dumps(parse_header(raw), indent=2))
+    if args.full:
+        g = GTMReader.read(raw)
+        print(f"tiles: {g.tile_count}, palettes: "
+              f"{0 if g.palettes_rgb is None else len(g.palettes_rgb)}, "
+              f"palette_size: {g.palette_size}, frames: {len(g.frames)}")
+        print("--- embedded settings ---")
+        print(g.settings_text)
+    return 0
+
+
+def cmd_selftest(args):
+    """Math invariants (the reference's TTilingEncoder.Test), in torch
+    float64 on the CPU: YUV and LAB round trips of 10,000 random colors,
+    and the feature transform and its inverse in the three invertible
+    modes (dct, weighted_dct, wavelets) on a gradient tile."""
+    import torch
+
+    from .ops import color, dct
+
+    rng = np.random.RandomState(0x42381337 & 0x7FFFFFFF)
+    rgb = torch.as_tensor(rng.randint(0, 256, (10000, 3)).astype(np.float64))
+    assert torch.equal(color.yuv_to_rgb(color.rgb_to_yuv(rgb)), rgb), "YUV"
+    assert torch.equal(color.lab_to_rgb(color.rgb_to_lab(rgb)), rgb), "LAB"
+    i = np.arange(8)[:, None]
+    j = np.arange(8)[None, :]
+    t = torch.as_tensor(np.stack([i * 8 + 0 * j, j * 32 + 0 * i, i * j], -1).astype(np.float64))
+    for mode in ("dct", "weighted_dct", "wavelets"):
+        back = dct.inv_tile_features(dct.tile_features(t, mode=mode), mode=mode)
+        assert torch.equal(back, t), mode
+    print("selftest ok")
+    return 0
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    if len(argv) == 1 and not argv[0].startswith("-") and argv[0] != "encode":
+    if len(argv) == 1 and not argv[0].startswith("-") and argv[0] not in SUBCOMMANDS:
         from .pipeline.encoder import Encoder
 
         enc = Encoder(_settings(argv[0], {}), device="cuda",
@@ -67,6 +133,16 @@ def main(argv=None):
     e.add_argument("--checkpoint", help="write the encoder state after the run "
                    "(loads in either package's Encoder.load_checkpoint)")
     e.set_defaults(fn=cmd_encode)
+    d = sub.add_parser("decode")
+    d.add_argument("input")
+    d.add_argument("output", help="OUT.y4m, or a PNG base name")
+    d.set_defaults(fn=cmd_decode)
+    i = sub.add_parser("info")
+    i.add_argument("input")
+    i.add_argument("--full", action="store_true")
+    i.set_defaults(fn=cmd_info)
+    t = sub.add_parser("selftest")
+    t.set_defaults(fn=cmd_selftest)
     args = p.parse_args(argv)
     return args.fn(args)
 

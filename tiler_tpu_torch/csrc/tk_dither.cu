@@ -83,6 +83,33 @@
 // (B * B + bias: 2), funnel shift, IMAD (208 * bits + that: 2), half a
 // three-input min: 10.5, of which 3 instructions give an int32 result;
 // about 45 slots a (pixel, step) outside the scan.
+//
+// S = 33..256: tk_select_wide_kernel, one kernel for every S of the range
+// (GTM writes a slot as a byte), S a run-time argument. Points 1, 3, 4 and
+// 8 hold as they are; where the narrow design does not stretch:
+// 9. The palette load. ceil(S / 32) ballots find the first valid slot,
+//    which every invalid row copies (point 5); lane l writes rows l, l +
+//    32, ... A picked slot is always a valid one's own row (or row 0 of a
+//    palette without a valid color, black): the feedback color is read
+//    back from the row, (r, g, b) = -(row.y, row.z, row.w) / 2, exact.
+// 10. The key. The scan keeps the 32-bit key of point 4 without slot bits,
+//    16 * pen + slack < 2^32, and the row's slot beside it: a strict `<` in
+//    slot order keeps the first minimum (an invalid row carries the first
+//    valid slot's key and slot, and ties between valid slots go to the
+//    lower one). No 64-bit key: an 8-bit slot below it would need 40 bits.
+// 11. No count walk. A pixel's 64 picks are stored as keys
+//    ((luma * 64 + step) << 8) | slot; luma <= 255,000, so luma * 64 + 63
+//    < 2^24 and a key < 2^32. The 24-bit prefixes are distinct (the step),
+//    and the pick of rank mapv is found as the TPU kernel finds it: the
+//    greatest prefix v with #{keys < v << 8} <= mapv, built bit by bit
+//    (24 x 64 compares on the 64 keys in registers; S x 64 for a walk).
+// 12. Shared memory, dynamic: 16 KB of keys and 24 S bytes of rows a warp,
+//    four warps (one tile each) a block: 68,704 B at S = 33, 90,112 B at
+//    S = 256, above the 48 KB static limit, so the launch opts in
+//    (cudaFuncAttributeMaxDynamicSharedMemorySize). At S = 256 two blocks
+//    fit an SM (8 warps); the scan reads its rows from shared memory (a
+//    broadcast: every lane reads the same row). A kernel that is right
+//    first: its speed is later work (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -302,6 +329,136 @@ tk_select_kernel(const uint8_t* __restrict__ pix,      // [T, 64, 3]
   }
 }
 
+constexpr int kWideWarps = 4;  // tiles per block of the wide kernel
+constexpr int kKeyBytes = kSteps * 64 * 4;  // a warp's keys: [step][pixel]
+
+// S = 33..256 (points 9-12 of the header); dynamic shared memory of
+// kWideWarps * (kKeyBytes + 24 * S) bytes
+__global__ void __launch_bounds__(32 * kWideWarps)
+tk_select_wide_kernel(const uint8_t* __restrict__ pix,      // [T, 64, 3]
+                      const uint8_t* __restrict__ mirror,   // [T] h | v << 1
+                      const int* __restrict__ pal_idx,      // [T]
+                      const int* __restrict__ table,        // [P, S, 8]
+                      uint8_t* __restrict__ out,            // [T, 64]
+                      int T, int S) {
+  extern __shared__ float4 wide_shared[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x * kWideWarps + warp;
+  if (tile >= T) return;  // whole warps leave; the rest only sync as warps
+  char* base = reinterpret_cast<char*>(wide_shared);
+  uint32_t* keys = reinterpret_cast<uint32_t*>(base) + warp * (kKeyBytes / 4);
+  base += kWideWarps * kKeyBytes;
+  float4* row = reinterpret_cast<float4*>(base) + warp * S;
+  float* lum = reinterpret_cast<float*>(base + kWideWarps * 16 * S) + warp * S;
+  int* row_slot = reinterpret_cast<int*>(base + kWideWarps * 20 * S) + warp * S;
+
+  // --- the tile's palette: the first valid slot, then the scan rows -------
+  const int* pal = table + (size_t)pal_idx[tile] * S * 8;
+  int first = -1;  // the same in every lane: the ballots are the warp's
+  for (int s0 = 0; s0 < S && first < 0; s0 += 32) {
+    const int s = s0 + lane;
+    const unsigned vmask = __ballot_sync(0xFFFFFFFFu, s < S && pal[s * 8 + 4] > 0);
+    if (vmask) first = s0 + __ffs(vmask) - 1;
+  }
+  for (int s = lane; s < S; s += 32) {
+    const int src = pal[s * 8 + 4] > 0 ? s : first;
+    int r = 0, g = 0, b = 0, l = 0, slot = 0;
+    if (src >= 0) {
+      r = pal[src * 8 + 0];
+      g = pal[src * 8 + 1];
+      b = pal[src * 8 + 2];
+      l = pal[src * 8 + 3];
+      slot = src;
+    }
+    row[s] = make_float4((float)(r * r + g * g + b * b) + 1.5f * kTwo23,
+                         (float)(-2 * r), (float)(-2 * g), (float)(-2 * b));
+    lum[s] = (float)l;
+    row_slot[s] = slot;
+  }
+  __syncwarp();
+
+  // --- 64 steps for the thread's two pixels ------------------------------
+  float sr[2], sg[2], sb[2], er[2], eg[2], eb[2];  // integers, exact in fp32
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t p = (size_t)tile * 64 + lane + 32 * i;
+    sr[i] = (float)pix[p * 3 + 0];
+    sg[i] = (float)pix[p * 3 + 1];
+    sb[i] = (float)pix[p * 3 + 2];
+    er[i] = eg[i] = eb[i] = 0.0f;
+  }
+#pragma unroll 1
+  for (int c = 0; c < kSteps; ++c) {
+    uint32_t bias[2], best[2];
+    int pick[2];
+    float tr[2], tg[2], tb[2], lum_t[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tr[i] = sr[i] + feedback(er[i]);
+      tg[i] = sg[i] + feedback(eg[i]);
+      tb[i] = sb[i] + feedback(eb[i]);
+      lum_t[i] = fmaf(tb[i], 114.0f, fmaf(tg[i], 587.0f, tr[i] * 299.0f));
+      const float t2 = fmaf(tb[i], tb[i], fmaf(tg[i], tg[i], tr[i] * tr[i]));
+      bias[i] = ((uint32_t)(208 * __float2int_rz(t2)) - 0x24000000u + 511u) >> 9;
+      best[i] = 0xFFFFFFFFu;  // above every key (point 4): row 0 always wins
+      pick[i] = 0;
+    }
+#pragma unroll 4
+    for (int s = 0; s < S; ++s) {
+      const float4 rw = row[s];
+      const float l = lum[s];
+      const int slot = row_slot[s];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t q = luma_quotient(lum_t[i], l);
+        const uint32_t dot = (uint32_t)__float_as_int(
+            fmaf(tb[i], rw.w, fmaf(tg[i], rw.z, fmaf(tr[i], rw.y, rw.x))));
+        const uint32_t key = dot * 208u + ((q * q + bias[i]) << 9);
+        const bool lt = key < best[i];
+        best[i] = lt ? key : best[i];
+        pick[i] = lt ? slot : pick[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float4 fed = row[pick[i]];  // (.., -2 r, -2 g, -2 b) of the pick
+      er[i] += fmaf(0.5f, fed.y, sr[i]);
+      eg[i] += fmaf(0.5f, fed.z, sg[i]);
+      eb[i] += fmaf(0.5f, fed.w, sb[i]);
+      keys[c * 64 + lane + 32 * i] =
+          ((uint32_t)((int)lum[pick[i]] * kSteps + c) << 8) | (uint32_t)pick[i];
+    }
+  }
+  __syncwarp();
+
+  // --- the pick of rank mapv in the (luma, step) order --------------------
+  const int m = mirror[tile];
+#pragma unroll 1
+  for (int i = 0; i < 2; ++i) {
+    const int px = lane + 32 * i;
+    const int y = (m & 2) ? 7 - (px >> 3) : (px >> 3);
+    const int x = (m & 1) ? 7 - (px & 7) : (px & 7);
+    const int mapv = c_bayer[y * 8 + x];
+    uint32_t k[kSteps];
+#pragma unroll
+    for (int c = 0; c < kSteps; ++c) k[c] = keys[c * 64 + px];
+    uint32_t lo = 0;  // the greatest prefix with at most mapv keys below it
+#pragma unroll 1
+    for (int bit = 23; bit >= 0; --bit) {
+      const uint32_t mid = lo | (1u << bit);
+      int below = 0;
+#pragma unroll
+      for (int c = 0; c < kSteps; ++c) below += k[c] < (mid << 8);
+      if (below <= mapv) lo = mid;
+    }
+    int sel = 0;
+#pragma unroll
+    for (int c = 0; c < kSteps; ++c) sel = (k[c] >> 8) == lo ? (int)(k[c] & 255u) : sel;
+    out[(size_t)tile * 64 + px] = (uint8_t)sel;
+  }
+}
+
 }  // namespace
 
 extern "C" int tk_select_launch(const void* pix, const void* mirror,
@@ -310,7 +467,18 @@ extern "C" int tk_select_launch(const void* pix, const void* mirror,
                                 void* stream) {
   (void)P;
   if (T <= 0) return 0;
-  if (S <= 0 || S > 32) return (int)cudaErrorInvalidValue;
+  if (S <= 0 || S > 256) return (int)cudaErrorInvalidValue;
+  if (S > 32) {
+    const int smem = kWideWarps * (kKeyBytes + 24 * S);
+    const cudaError_t attr = cudaFuncSetAttribute(
+        tk_select_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    tk_select_wide_kernel<<<(T + kWideWarps - 1) / kWideWarps, 32 * kWideWarps, smem,
+                            (cudaStream_t)stream>>>(
+        (const uint8_t*)pix, (const uint8_t*)mirror, (const int*)pal_idx,
+        (const int*)table, (uint8_t*)out, T, S);
+    return (int)cudaGetLastError();
+  }
   const int blocks = (T + kWarps - 1) / kWarps;
   auto kernel = S <= 16 ? tk_select_kernel<16> : tk_select_kernel<32>;
   kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(

@@ -1,1 +1,1 @@
-"""Host-side video ingest."""
+"""Host-side video ingest and export."""

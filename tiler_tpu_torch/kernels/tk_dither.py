@@ -2,12 +2,14 @@
 PyTorch version.
 
 Replaces the Pallas TPU kernel ``tiler_tpu/kernels/tk_dither.py::tk_select``
-(the call at :147, body ``_make_kernel`` :49-123). The CUDA source is
-``csrc/tk_dither.cu``; its header says what bounds it on the card and how
-the design answers that.
+(the call at :147, body ``_make_kernel`` :49-123) at every palette size
+1..256. The CUDA source is ``csrc/tk_dither.cu``; its header says what
+bounds it on the card and how the design answers that. S <= 32 runs the
+two narrow instantiations (:func:`tk_select`), S = 33..256 the wide kernel
+(:func:`tk_select_wide`), each wrapper counting its own launches.
 
 :func:`tk_select` dispatches on the device of its inputs: CPU tensors go
-to :func:`tk_select_plain`, CUDA tensors to the kernel. There is no
+to :func:`tk_select_plain`, CUDA tensors to a kernel. There is no
 fallback from one to the other.
 """
 from __future__ import annotations
@@ -19,6 +21,11 @@ from . import _build
 
 STEPS = 64
 BIG = 1 << 30
+NARROW_S = 32  # the widest palette of the narrow instantiations
+MAX_S = 256  # GTM writes a palette slot as a byte
+# tk_select_plain's [tiles, 64, S] int32 step tensors hold at most this
+# many elements a chunk of tiles (256 MiB each)
+PLAIN_CHUNK = 1 << 26
 RED_MUL, GREEN_MUL, BLUE_MUL, LUMA_DIV = 299, 587, 114, 1000
 RGB_W = 13
 
@@ -72,8 +79,14 @@ def tk_select_plain(pix, mirror, pal_idx, table) -> torch.Tensor:
     pix uint8 [T, 64, 3] canonical tile pixels; mirror uint8 [T]
     (hmirror | vmirror << 1, selects the mirrored Bayer map); pal_idx
     int32 [T]; table int32 [P, S, 8] from :func:`pal_table`.
-    Returns uint8 [T, 64] palette slots."""
+    Returns uint8 [T, 64] palette slots. Tiles go in chunks whose
+    [tiles, 64, S] step tensors hold at most ``PLAIN_CHUNK`` elements."""
     T = pix.shape[0]
+    chunk = max(1, PLAIN_CHUNK // (64 * table.shape[1]))
+    if T > chunk:
+        return torch.cat([tk_select_plain(pix[i:i + chunk], mirror[i:i + chunk],
+                                          pal_idx[i:i + chunk], table)
+                          for i in range(0, T, chunk)])
     pal = table[pal_idx.long()]  # [T, S, 8]
     pr, pg, pb, pl = (pal[:, None, :, i] for i in range(4))  # [T, 1, S]
     pv = pal[:, None, :, 4] > 0
@@ -132,8 +145,8 @@ def _check(pix, mirror, pal_idx, table):
             raise ValueError(f"tk_select: {name} must be contiguous")
     if table.dim() != 3 or table.shape[2] != 8:
         raise ValueError(f"tk_select: table must be [P, S, 8], got {tuple(table.shape)}")
-    if not 1 <= table.shape[1] <= 32:
-        raise ValueError(f"tk_select: palette size {table.shape[1]} outside 1..32")
+    if not 1 <= table.shape[1] <= MAX_S:
+        raise ValueError(f"tk_select: palette size {table.shape[1]} outside 1..{MAX_S}")
     if T and dev.type == "cpu":
         # on the card this read would stall the host on the device inside
         # the dither stage: there the caller checks the range while
@@ -147,30 +160,55 @@ def check_pal_idx(pal_idx: np.ndarray, P: int):
         raise ValueError(f"tk_select: pal_idx outside [0, {P})")
 
 
+def _launch(pix, mirror, pal_idx, table) -> torch.Tensor:
+    T, P, S = pix.shape[0], table.shape[0], table.shape[1]
+    out = torch.empty((T, 64), dtype=torch.uint8, device=pix.device)
+    code = _build.lib().tk_select_launch(
+        pix.data_ptr(), mirror.data_ptr(), pal_idx.data_ptr(),
+        table.data_ptr(), out.data_ptr(), T, P, S,
+        _build.stream_ptr(pix.device))
+    _build.check(code, "tk_select_launch")
+    return out
+
+
 def tk_select(pix, mirror, pal_idx, table) -> torch.Tensor:
     """Thomas Knoll palette slot per pixel; see :func:`tk_select_plain`.
-    CPU tensors run the plain version, CUDA tensors the kernel. The
-    kernel's integer ranges assume colors in 0..255 with the luma of
-    :func:`pal_table`; on the card the caller answers for pal_idx in
-    [0, P) (:func:`check_pal_idx`)."""
+    CPU tensors run the plain version, CUDA tensors a kernel: S <= 32 the
+    narrow instantiations (counted here), S = 33..256 the wide kernel
+    (:func:`tk_select_wide`, counted there). The kernels' integer ranges
+    assume colors in 0..255 with the luma of :func:`pal_table`; on the
+    card the caller answers for pal_idx in [0, P) (:func:`check_pal_idx`)."""
+    if table.dim() == 3 and table.shape[1] > NARROW_S:
+        return tk_select_wide(pix, mirror, pal_idx, table)
     if pix.device.type not in ("cpu", "cuda"):
         raise ValueError(f"tk_select: no kernel for device {pix.device}")
     _check(pix, mirror, pal_idx, table)
     if pix.device.type == "cpu":
         return tk_select_plain(pix, mirror, pal_idx, table)
-    T, P, S = pix.shape[0], table.shape[0], table.shape[1]
-    out = torch.empty((T, 64), dtype=torch.uint8, device=pix.device)
-    lib = _build.lib()
-    code = lib.tk_select_launch(
-        pix.data_ptr(), mirror.data_ptr(), pal_idx.data_ptr(),
-        table.data_ptr(), out.data_ptr(), T, P, S,
-        _build.stream_ptr(pix.device))
-    _build.check(code, "tk_select_launch")
+    out = _launch(pix, mirror, pal_idx, table)
     tk_select.launches += 1
     return out
 
 
+def tk_select_wide(pix, mirror, pal_idx, table) -> torch.Tensor:
+    """:func:`tk_select` for palettes of S = 33..256 colors: the wide
+    kernel (``tk_select_wide_kernel``, points 9-12 of csrc/tk_dither.cu's
+    header) on CUDA tensors, the plain version on CPU tensors."""
+    if pix.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"tk_select_wide: no kernel for device {pix.device}")
+    _check(pix, mirror, pal_idx, table)
+    if not NARROW_S < table.shape[1]:
+        raise ValueError(f"tk_select_wide: palette size {table.shape[1]} is not above "
+                         f"{NARROW_S} (tk_select runs those)")
+    if pix.device.type == "cpu":
+        return tk_select_plain(pix, mirror, pal_idx, table)
+    out = _launch(pix, mirror, pal_idx, table)
+    tk_select_wide.launches += 1
+    return out
+
+
 tk_select.launches = 0
+tk_select_wide.launches = 0
 
 
 def trunc_probe(lo: int, count: int, which: int, device) -> torch.Tensor:
@@ -200,12 +238,16 @@ def adversarial_case(S: int, seed: int = 0, reps: int = 2):
     slots; equal lumas, duplicates and invalid slots together."""
     rng = np.random.default_rng(seed)
     rand = lambda: rng.integers(0, 256, (S, 3))  # noqa: E731
-    # colors of one luma: a base plus moves (a, b, c) with 299a + 587b + 114c = 0
-    d = np.arange(-40, 41)
+    # colors of one luma: a base plus moves (a, b, c) with 299a + 587b +
+    # 114c = 0; 8 such colors within +-40 of grey 120, 98 within +-120 of
+    # grey 128 for the wide palettes (repeated up to S: equal lumas across
+    # every slot)
+    r, grey = (40, 120) if S <= NARROW_S else (120, 128)
+    d = np.arange(-r, r + 1)
     a, b, c = np.meshgrid(d, d, d, indexing="ij")
     zero = (RED_MUL * a + GREEN_MUL * b + BLUE_MUL * c == 0) & ((a != 0) | (b != 0))
     steps = np.stack([a[zero], b[zero], c[zero]], axis=1)  # luma-neutral moves
-    base = np.array([120, 120, 120])
+    base = np.array([grey, grey, grey])
     same_luma = base + steps[rng.permutation(len(steps))[:S]]
     if len(same_luma) < S:
         same_luma = np.resize(same_luma, (S, 3))

@@ -1,9 +1,11 @@
 """Colorspace conversions on torch tensors, batched over leading axes.
 
 Counterpart of ``tiler_tpu/ops/color.py`` with the same constants:
-Rec.601 luma 299/587/114, YUV u=(b-y)*0.492 v=(r-y)*0.877, CIE LAB via
-the Wright-Guild XYZ matrix and illuminant D50, and the integer HSV used
-to order palette colors. RGB is on the 0..255 byte scale.
+Rec.601 luma 299/587/114, YUV u=(b-y)*0.492 v=(r-y)*0.877 and its
+inverse 1.13983/0.39465/0.58060/2.03211, CIE LAB via the Wright-Guild XYZ
+matrix and illuminant D50 (back through the reference's hand-rounded
+inverse matrix), and the integer HSV used to order palette colors. RGB is
+on the 0..255 byte scale.
 """
 from __future__ import annotations
 
@@ -26,6 +28,15 @@ _XYZ_M = np.array(
 ) / 0.17697
 _D50 = np.array([96.6797 / 100, 100.000 / 100, 82.5188 / 100])
 _XYZ_M_D50 = _XYZ_M / _D50[:, None]
+# the inverse LABToRGB uses: the reference's hand-rounded constants, not
+# the exact inverse of _XYZ_M
+_XYZ_INV = np.array(
+    [
+        [0.41847, -0.15866, -0.082835],
+        [-0.091169, 0.25243, 0.015708],
+        [0.00092090, -0.0025498, 0.17860],
+    ]
+)
 
 
 def rgb_to_yuv(rgb: torch.Tensor) -> torch.Tensor:
@@ -41,8 +52,26 @@ def rgb_to_yuv(rgb: torch.Tensor) -> torch.Tensor:
     return torch.stack([y, u, v], dim=-1)
 
 
+def yuv_to_rgb(yuv: torch.Tensor, clamp: bool = True) -> torch.Tensor:
+    """YUV -> RGB floats (0..255 scale); with ``clamp``, rounded and
+    clamped to bytes."""
+    y, u, v = yuv[..., 0], yuv[..., 1], yuv[..., 2]
+    r = y + v * 1.13983
+    g = y - u * 0.39465 - v * 0.58060
+    b = y + u * 2.03211
+    rgb = torch.stack([r, g, b], dim=-1)
+    if clamp:
+        rgb = torch.clamp(torch.round(rgb), 0, 255)
+    return rgb
+
+
 def _srgb_to_linear(c):
     return torch.where(c > 0.04045, ((c + 0.055) / 1.055) ** 2.4, c / 12.92)
+
+
+def _linear_to_srgb(c):
+    return torch.where(c > 0.0031308, 1.055 * torch.clamp_min(c, 0.0) ** (1 / 2.4) - 0.055,
+                       12.92 * c)
 
 
 def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
@@ -57,6 +86,24 @@ def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
     a = 500 * (fx - fy)
     b = 200 * (fy - fz)
     return torch.stack([L, a, b], dim=-1)
+
+
+def lab_to_rgb(lab: torch.Tensor, clamp: bool = True) -> torch.Tensor:
+    """CIE L*a*b* -> RGB (0..255 scale); with ``clamp``, rounded and
+    clamped to bytes."""
+    L, a, b = lab[..., 0], lab[..., 1], lab[..., 2]
+    fy = (L + 16) / 116
+    fx = a / 500 + fy
+    fz = fy - b / 200
+    f = torch.stack([fx, fy, fz], dim=-1)
+    f3 = f * f * f
+    xyz = torch.where(f3 > 0.008856, f3, (f - 16 / 116) / 7.787)
+    xyz = xyz * torch.as_tensor(_D50, dtype=xyz.dtype, device=xyz.device)
+    lin = xyz @ torch.as_tensor(_XYZ_INV.T, dtype=xyz.dtype, device=xyz.device)
+    rgb = _linear_to_srgb(lin) * 255.0
+    if clamp:
+        rgb = torch.clamp(torch.round(rgb), 0, 255)
+    return rgb
 
 
 def luma(rgb):

@@ -1,18 +1,20 @@
 """8x8 psycho-visual DCT features of RGB tiles.
 
-Counterpart of ``tiler_tpu/ops/dct.py`` for the four DCT modes
-(``dct``, ``weighted_dct``, ``spe_dct``, ``weighted_spe_dct``): per
-channel Z = D @ P @ D^T, optionally times the PSNR-HVS weights, scattered
-through the zigzag "snake" map. The constant tables are rebuilt here with
-the same numpy code, because the JAX module imports jax at its top; a
-test holds them equal to the JAX package's.
+Counterpart of ``tiler_tpu/ops/dct.py`` for the five psy-vis modes: the
+four DCT modes (``dct``, ``weighted_dct``, ``spe_dct``,
+``weighted_spe_dct``: per channel Z = D @ P @ D^T, optionally times the
+PSNR-HVS weights) and ``wavelets`` (a 2-level normalized Haar transform),
+scattered through the zigzag "snake" map; and the inverse of the three
+invertible modes (:func:`inv_tile_features`). The constant tables are
+rebuilt here with the same numpy code, because the JAX module imports jax
+at its top; a test holds them equal to the JAX package's.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .color import rgb_to_lab, rgb_to_yuv
+from .color import lab_to_rgb, rgb_to_lab, rgb_to_yuv, yuv_to_rgb
 
 TILE_W = 8
 TILE_DCT_SIZE = 192
@@ -87,7 +89,7 @@ def _dct_matrix(spe: bool) -> np.ndarray:
 DCT_MAT = _dct_matrix(spe=False)  # [8(u), 8(x)]
 DCT_MAT_SPE = _dct_matrix(spe=True)
 
-MODES = ("dct", "weighted_dct", "spe_dct", "weighted_spe_dct")
+MODES = ("dct", "weighted_dct", "wavelets", "spe_dct", "weighted_spe_dct")
 
 
 def tile_features(tiles_rgb: torch.Tensor, mode: str = "weighted_dct",
@@ -101,15 +103,78 @@ def tile_features(tiles_rgb: torch.Tensor, mode: str = "weighted_dct",
 def cpn_features(cpn: torch.Tensor, mode: str = "weighted_dct") -> torch.Tensor:
     """DCT features from component planes [..., 8(y), 8(x), 3(c)]."""
     if mode not in MODES:
-        raise ValueError(f"dithering_mode={mode!r} is not ported; "
-                         f"the port supports {MODES}")
-    spe = mode in ("spe_dct", "weighted_spe_dct")
-    D = torch.as_tensor(DCT_MAT_SPE if spe else DCT_MAT, dtype=cpn.dtype,
-                        device=cpn.device)
-    z = torch.einsum("vy,...yxc,ux->...vuc", D, cpn, D)
-    if mode in ("weighted_dct", "weighted_spe_dct"):
-        w = torch.as_tensor(DCT_WEIGHTS, dtype=cpn.dtype, device=cpn.device)
-        z = z * w.permute(1, 2, 0)
+        raise ValueError(f"dithering_mode={mode!r}: the psy-vis modes are {MODES}")
+    if mode == "wavelets":
+        z = _wavelet2(cpn)  # [..., v, u, c]
+    else:
+        spe = mode in ("spe_dct", "weighted_spe_dct")
+        D = torch.as_tensor(DCT_MAT_SPE if spe else DCT_MAT, dtype=cpn.dtype,
+                            device=cpn.device)
+        z = torch.einsum("vy,...yxc,ux->...vuc", D, cpn, D)
+        if mode in ("weighted_dct", "weighted_spe_dct"):
+            w = torch.as_tensor(DCT_WEIGHTS, dtype=cpn.dtype, device=cpn.device)
+            z = z * w.permute(1, 2, 0)
     zflat = torch.movedim(z, -1, -3).reshape(*z.shape[:-3], TILE_DCT_SIZE)
     inv = np.concatenate([SNAKE_INV, SNAKE_INV + 64, SNAKE_INV + 128])
     return zflat[..., torch.as_tensor(inv, dtype=torch.long, device=cpn.device)]
+
+
+def inv_tile_features(feat: torch.Tensor, mode: str = "weighted_dct", use_lab: bool = False,
+                      clamp: bool = True) -> torch.Tensor:
+    """Inverse of :func:`tile_features` for the modes without the half-
+    frequency DCT (``dct``, ``weighted_dct``, ``wavelets``): [..., 192]
+    -> RGB tiles [..., 8, 8, 3] (rounded bytes with ``clamp``)."""
+    if mode not in ("dct", "weighted_dct", "wavelets"):
+        raise ValueError(f"inv_tile_features: mode {mode!r} has no inverse")
+    idx = np.concatenate([SNAKE, SNAKE + 64, SNAKE + 128])
+    zflat = feat[..., torch.as_tensor(idx, dtype=torch.long, device=feat.device)]
+    z = torch.movedim(zflat.reshape(*feat.shape[:-1], 3, 8, 8), -3, -1)  # [..., v, u, c]
+    if mode == "weighted_dct":
+        w = torch.as_tensor(DCT_WEIGHTS, dtype=z.dtype, device=z.device)
+        z = z / w.permute(1, 2, 0)
+    if mode == "wavelets":
+        cpn = _inv_wavelet2(z)
+    else:
+        # P = E^T (Z * q q^T) E / 16, E[u, x] = cos((x + 0.5) u pi / 8) = D / q
+        q = np.array([np.sqrt(0.5), 1, 1, 1, 1, 1, 1, 1])
+        E = torch.as_tensor(DCT_MAT / q[:, None], dtype=z.dtype, device=z.device)
+        qt = torch.as_tensor(q, dtype=z.dtype, device=z.device)
+        zq = z * qt[:, None, None] * qt[None, :, None]
+        cpn = torch.einsum("vy,...vuc,ux->...yxc", E, zq, E) / 16.0
+    return lab_to_rgb(cpn, clamp=clamp) if use_lab else yuv_to_rgb(cpn, clamp=clamp)
+
+
+# a Python float: keeps float32 operands float32
+_ISQRT2 = float(np.sqrt(2) / 2)
+
+
+def _wavelet2(cpn: torch.Tensor) -> torch.Tensor:
+    """2-level normalized Haar transform over the top-left quadrant, rows
+    then columns at each level (the reference's WaveletGS)."""
+    x = cpn
+    for size in (8, 4):
+        sub = x[..., :size, :size, :]
+        a, b = sub[..., :, 0::2, :], sub[..., :, 1::2, :]
+        rows = torch.cat([(a + b), (a - b)], dim=-2) * _ISQRT2
+        a, b = rows[..., 0::2, :, :], rows[..., 1::2, :, :]
+        cols = torch.cat([(a + b), (a - b)], dim=-3) * _ISQRT2
+        x = x.clone()
+        x[..., :size, :size, :] = cols
+    return x
+
+
+def _inv_wavelet2(z: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_wavelet2` (the reference's DeWaveletGS)."""
+    x = z
+    for size in (4, 8):
+        sub = x[..., :size, :size, :]
+        h = size // 2
+        s, d = sub[..., :h, :, :], sub[..., h:, :, :]
+        a, b = (s + d) * _ISQRT2, (s - d) * _ISQRT2
+        cols = torch.stack([a, b], dim=-3).reshape(*a.shape[:-3], size, size, a.shape[-1])
+        s, d = cols[..., :, :h, :], cols[..., :, h:, :]
+        a, b = (s + d) * _ISQRT2, (s - d) * _ISQRT2
+        rows = torch.stack([a, b], dim=-2).reshape(*a.shape[:-3], size, size, a.shape[-1])
+        x = x.clone()
+        x[..., :size, :size, :] = rows
+    return x

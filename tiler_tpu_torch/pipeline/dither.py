@@ -5,15 +5,22 @@ dithered against a per-tile MIRRORED Bayer map (the reference un-mirrors
 each tile to its screen orientation first). Two ditherers, chosen by
 ``settings.dithering_use_thomas_knoll``:
 
-- Thomas Knoll: the per-pixel work is kernel B1 (``kernels/tk_dither.py``),
-  one launch for the whole corpus.
+- Thomas Knoll, with ``use_pallas_tk`` (the default): the per-pixel work
+  is the ``tk_select`` kernel (``kernels/tk_dither.py``), one launch for
+  the whole corpus, at every palette size 1..256.
+- Thomas Knoll without it (:func:`thomas_knoll_select`): the JAX
+  package's XLA path (``thomas_knoll_lists``,
+  ``tiler_tpu/pipeline/dither.py:67-99``) as plain tensor passes, tiles in
+  chunks sized from S. It runs on a CUDA tensor too, because the settings
+  ask for it, and launches no kernel.
 - Yliluoma2 (:func:`yliluoma2_lists`): the mixing-plan construction of
   ``tiler_tpu/pipeline/dither.py:102-181`` as plain integer tensor passes
-  on the encoder's device, tiles in chunks. The JAX package has no kernel
-  here either.
+  on the encoder's device, tiles in chunks sized from S. The JAX package
+  has no kernel here either.
 
-Both are all int32 and bit-identical to the JAX package's. Reindex's
-palette-pixel hashes are taken here, as the JAX package's prefetch does.
+All are int32 and bit-identical to the JAX package's (and the two Thomas
+Knoll paths to each other). Reindex's palette-pixel hashes are taken
+here, as the JAX package's prefetch does.
 """
 from __future__ import annotations
 
@@ -27,11 +34,19 @@ from ..models.state import EncodeState
 from .reindex import pal_hashes
 
 BIG = 1 << 30
-# Tiles per Yliluoma2 chunk, a constant: the [pixels, S, 2 * mixed, 4] int32
-# candidate table of a chunk is 1 GiB at S = 16, mixed = 4, and a round
-# holds about five tensors of that size (the JAX package's 16,384 tiles
-# would double both).
-YLILUOMA_CHUNK = 8192
+# Bytes of Yliluoma2's [pixels, S, 2 * mixed, 4] int32 candidate table a
+# chunk of tiles: 8,192 tiles at S = 16, mixed = 4 (a round holds about
+# five tensors of that size; the JAX package's 16,384 tiles would double
+# both), 512 tiles at S = 256.
+YLILUOMA_TABLE = 1 << 30
+# Elements of the plain Thomas Knoll path's [pixels, S] int32 step tensors
+# a chunk of tiles: 32,768 tiles at S = 16, 2,048 at S = 256.
+TK_PLAIN_ELEMS = 1 << 25
+
+
+def yliluoma2_chunk(S: int, mixed: int) -> int:
+    """Tiles per Yliluoma2 chunk: the candidate table near YLILUOMA_TABLE."""
+    return max(1, YLILUOMA_TABLE // (64 * S * 2 * mixed * 4 * 4))
 
 
 def _trunc_div(a: torch.Tensor, b: int) -> torch.Tensor:
@@ -47,6 +62,72 @@ def color_compare(r1, g1, b1, r2, g2, b2):
     lumadiff = _trunc_div(luma1 - luma2, LUMA_DIV)
     dr, dg, db = r1 - r2, g1 - g2, b1 - b2
     return (dr * dr + dg * dg + db * db) * RGB_W + (lumadiff * lumadiff) * 32
+
+
+def thomas_knoll_lists(pix_rgb, pal_rgb, pal_valid, S: int):
+    """Thomas Knoll 64-entry mixing lists, luma-sorted, after
+    ``tiler_tpu.pipeline.dither.thomas_knoll_lists``: 64 error-feedback
+    steps, each the first minimum of ColorCompare over the valid colors.
+
+    pix_rgb [B, 3], pal_rgb [B, S, 3] (the palette of each pixel) integer
+    tensors, pal_valid [B, S] bool. Returns [B, 64] int32 palette slots,
+    stable-sorted by luma (equal lumas keep their step order)."""
+    src = pix_rgb.to(torch.int32)
+    pal = pal_rgb.to(torch.int32)
+    if pal.shape[1] != S:
+        raise ValueError(f"thomas_knoll_lists: pal_rgb holds {pal.shape[1]} slots, S={S}")
+    pr, pg, pb = pal[..., 0], pal[..., 1], pal[..., 2]
+    lum_pal = pr * RED_MUL + pg * GREEN_MUL + pb * BLUE_MUL
+    inval = ~pal_valid
+    err = torch.zeros_like(src)
+    picks = []
+    for _ in range(64):
+        t = src + _trunc_div(err * 9, 100)
+        pen = color_compare(t[:, None, 0], t[:, None, 1], t[:, None, 2], pr, pg, pb)
+        chosen = torch.where(inval, BIG, pen).argmin(dim=1)  # the first minimum
+        err = err + src - pal.gather(1, chosen[:, None, None].expand(-1, 1, 3))[:, 0]
+        picks.append(chosen)
+    lists = torch.stack(picks, dim=1)
+    order = torch.sort(lum_pal.gather(1, lists), dim=1, stable=True).indices
+    return lists.gather(1, order).to(torch.int32)
+
+
+def _select_in_chunks(tiles_u8, mirror, pal_idx, pal_rgb, pal_valid, chunk: int, pick):
+    """Tiles in chunks of ``chunk``: each chunk's pixels with their
+    palettes go to ``pick(pix [B, 3], pal [B, S, 3], valid [B, S], mapv
+    [B])``, which returns each pixel's palette slot. Returns [T, 8, 8]
+    uint8."""
+    T = tiles_u8.shape[0]
+    out = torch.empty(T, 8, 8, dtype=torch.uint8, device=tiles_u8.device)
+    for i in range(0, T, chunk):
+        n = min(chunk, T - i)
+        pidx = pal_idx[i:i + n].long()
+        sel = pick(tiles_u8[i:i + n].reshape(n * 64, 3),
+                   pal_rgb[pidx].repeat_interleave(64, dim=0),
+                   pal_valid[pidx].repeat_interleave(64, dim=0),
+                   mirrored_bayer(mirror[i:i + n]).reshape(n * 64).long())
+        out[i:i + n] = sel.reshape(n, 8, 8).to(torch.uint8)
+    return out
+
+
+def thomas_knoll_select(tiles_u8, mirror, pal_idx, pal_rgb, pal_valid,
+                        chunk: int | None = None) -> torch.Tensor:
+    """Thomas Knoll palette slot per pixel by plain tensor passes
+    (``use_pallas_tk=False``), tiles in chunks of ``chunk`` (by default
+    sized from S, ``TK_PLAIN_ELEMS``): the list entry at the pixel's
+    mirrored Bayer value. Runs on the device of its inputs, a CUDA one
+    included, and launches no kernel; its slots equal ``tk_select``'s.
+
+    tiles_u8 [T, 8, 8, 3] uint8, mirror [T] uint8, pal_idx [T] integer,
+    pal_rgb [P, S, 3] integer, pal_valid [P, S] bool. Returns [T, 8, 8]
+    uint8."""
+    S = pal_rgb.shape[1]
+
+    def pick(pix, pal, valid, mapv):
+        return thomas_knoll_lists(pix, pal, valid, S).gather(1, mapv[:, None])[:, 0]
+
+    return _select_in_chunks(tiles_u8, mirror, pal_idx, pal_rgb, pal_valid,
+                             chunk or max(1, TK_PLAIN_ELEMS // (64 * S)), pick)
 
 
 def yliluoma2_lists(pix_rgb, pal_rgb, pal_valid, S: int, mixed: int):
@@ -111,28 +192,21 @@ def yliluoma2_lists(pix_rgb, pal_rgb, pal_valid, S: int, mixed: int):
 
 
 def yliluoma2_select(tiles_u8, mirror, pal_idx, pal_rgb, pal_valid, mixed: int,
-                     chunk: int = YLILUOMA_CHUNK) -> torch.Tensor:
-    """Yliluoma2 palette slot per pixel, tiles in chunks of ``chunk``.
+                     chunk: int | None = None) -> torch.Tensor:
+    """Yliluoma2 palette slot per pixel, tiles in chunks of ``chunk`` (by
+    default :func:`yliluoma2_chunk`).
 
     tiles_u8 [T, 8, 8, 3] uint8, mirror [T] uint8, pal_idx [T] integer,
     pal_rgb [P, S, 3] integer, pal_valid [P, S] bool, all on one device.
     Returns [T, 8, 8] uint8."""
-    T = tiles_u8.shape[0]
     S = pal_rgb.shape[1]
-    pal_rgb = pal_rgb.to(torch.int32)
-    out = torch.empty(T, 8, 8, dtype=torch.uint8, device=tiles_u8.device)
-    for i in range(0, T, chunk):
-        n = min(chunk, T - i)
-        pidx = pal_idx[i:i + n].long()
-        mapv = mirrored_bayer(mirror[i:i + n]).reshape(n * 64)
-        lists, count = yliluoma2_lists(
-            tiles_u8[i:i + n].reshape(n * 64, 3),
-            pal_rgb[pidx].repeat_interleave(64, dim=0),
-            pal_valid[pidx].repeat_interleave(64, dim=0), S, mixed)
-        rank = (mapv * count) >> 6
-        sel = lists.gather(1, rank.long()[:, None])[:, 0]
-        out[i:i + n] = sel.reshape(n, 8, 8).to(torch.uint8)
-    return out
+
+    def pick(pix, pal, valid, mapv):
+        lists, count = yliluoma2_lists(pix, pal, valid, S, mixed)
+        return lists.gather(1, ((mapv * count) >> 6)[:, None])[:, 0]
+
+    return _select_in_chunks(tiles_u8, mirror, pal_idx, pal_rgb.to(torch.int32), pal_valid,
+                             chunk or yliluoma2_chunk(S, mixed), pick)
 
 
 def _corpus_initial_mirrors(state: EncodeState):
@@ -166,9 +240,11 @@ def dither(state: EncodeState, settings: EncoderSettings) -> EncodeState:
         # drawn from a permutation of arange(P), in range by construction
         check_pal_idx(pal_initial, pal_rgb.shape[0])
     pidx = torch.as_tensor(pal_initial, device=dev).to(torch.int32).contiguous()
-    if settings.dithering_use_thomas_knoll:
+    if settings.dithering_use_thomas_knoll and settings.use_pallas_tk:
         sel = tk_select(corpus.reshape(T, 64, 3).contiguous(), mirror, pidx,
                         pal_table(pal_rgb, pal_valid))
+    elif settings.dithering_use_thomas_knoll:
+        sel = thomas_knoll_select(corpus, mirror, pidx, pal_rgb, pal_valid)
     else:
         sel = yliluoma2_select(corpus, mirror, pidx, pal_rgb, pal_valid,
                                settings.dithering_yliluoma2_mixed_colors)

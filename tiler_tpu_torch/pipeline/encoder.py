@@ -20,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import EncoderSettings
+from ..config import PSYVIS_MODES, EncoderSettings
 from ..models import state as state_mod
 from ..models.convert import state_from_numpy, state_to_numpy
 from ..models.state import EncodeState
@@ -65,19 +65,17 @@ def check_settings(s: EncoderSettings):
          "only full 192-dim motion ranking is ported"),
         ("phase_b_motion", s.phase_b_motion not in ("reuse", "research"),
          "only the 'reuse' and 'research' phase-B modes exist"),
-        ("use_pallas_tk", not s.use_pallas_tk,
-         "the port dithers Thomas Knoll through its kernel only"),
         ("dithering_yliluoma2_mixed_colors",
          not 1 <= s.dithering_yliluoma2_mixed_colors <= 16,
          "Yliluoma2 plans hold 1..16 mixed colors (a plan of up to twice "
          "that is ranked by the 6-bit Bayer value)"),
-        ("dithering_mode", s.dithering_mode == "wavelets",
-         "the wavelet psy-vis mode is not ported"),
-        ("color_quantizer", s.color_quantizer != "kmeans",
-         "only the k-means color quantizer is ported"),
+        ("dithering_mode", s.dithering_mode not in PSYVIS_MODES,
+         f"the psy-vis modes are {PSYVIS_MODES}"),
+        ("color_quantizer", s.color_quantizer not in ("kmeans", "mediancut"),
+         "the color quantizers are 'kmeans' and 'mediancut'"),
         ("scaling", not s.scaling > 0, "the scaling factor must be positive"),
-        ("palette_size", not 1 <= s.palette_size <= 32,
-         "the TK kernel packs a palette slot in 5 bits"),
+        ("palette_size", not 1 <= s.palette_size <= 256,
+         "GTM writes a palette slot as a byte, so a palette holds 1..256 colors"),
     )
     for flag, off_slice, why in rules:
         if off_slice:
@@ -178,8 +176,10 @@ class Encoder:
 
     def prepare_palettes(self):
         t0 = self._start()
-        palettes_mod.prepare_palettes(self.state, self.settings)
+        palettes_mod.prepare_palettes(self.state, self.settings, stats=self.step_stats)
         self._stamp("prepare_palettes", t0)
+        inner = self.step_stats["two_opt_inner"]
+        self.log(f"2-opt: {sum(inner)} inner iterations in {len(inner)} rounds {inner}")
         return self
 
     def dither(self):

@@ -1,14 +1,18 @@
 """esPreparePalettes: palettization, per-palette color quantization, and
 the cross-palette permutation optimization.
 
-Counterpart of the default (k-means) path of
-``tiler_tpu/pipeline/palettes.py:38-431``: two levels of weighted k-means
-over the corpus's LAB psy-vis features assign every tile a palette;
-per palette, a uniform sample of member tiles' pixels is quantized by a
-batched weighted k-means to S colors, sorted by integer HSV, and a 2-opt
-search permutes each palette's slots to maximize the cross-palette
-per-slot spread. Random draws come from the port's threefry generator,
-so they are the JAX package's draws.
+Counterpart of ``tiler_tpu/pipeline/palettes.py:38-431``: two levels of
+weighted k-means over the corpus's LAB psy-vis features assign every tile
+a palette; per palette, a uniform sample of member tiles' pixels is
+quantized to S colors and sorted by integer HSV, and a 2-opt search
+permutes each palette's slots to maximize the cross-palette per-slot
+spread. The quantizer is a batched weighted k-means on the device
+(``color_quantizer="kmeans"``), or the host median cut (``"mediancut"``,
+``cluster/mediancut.py``); the 2-opt (:func:`optimize_palettes`) then
+runs on the device after either (the JAX package fuses it into the
+k-means path's quantization). Random draws come from the
+port's threefry generator, so they are the JAX package's draws. The
+2-opt's inner iterations per round go to ``stats["two_opt_inner"]``.
 """
 from __future__ import annotations
 
@@ -16,9 +20,11 @@ import numpy as np
 import torch
 
 from ..cluster.kmeans import kmeans
+from ..cluster.mediancut import median_cut
 from ..config import EncoderSettings
 from ..models.state import EncodeState
 from ..ops import dct, prng
+from ..ops.color import posterize, rgb_to_hsv_bytes
 
 RED_MUL, GREEN_MUL, BLUE_MUL, LUMA_DIV = 299, 587, 114, 1000
 COLOR_CAP = 2048  # sampled member pixels per palette
@@ -154,11 +160,14 @@ def _hsv_sort(cents, npix, S: int):
     return rgb.float(), valid.gather(1, order)
 
 
-def _optimize_palettes(pal, valid, S: int, max_rounds: int, max_inner: int):
+def _optimize_palettes(pal, valid, S: int, max_rounds: int, max_inner: int,
+                       inner_counts: list):
     """2-opt on the OptimizePalettes objective: maximize
     sum_c w_c * sqrt(sum_slot (acc_c + pal_c - mean_c)^2 / S), with swap
     gains in the cancellation-free form 2 (rj - ri)(ti - tj) and
-    sqrt(a + d) - sqrt(a) = d / (sqrt(a + d) + sqrt(a))."""
+    sqrt(a + d) - sqrt(a) = d / (sqrt(a + d) + sqrt(a)). Each round's
+    inner iterations are appended to ``inner_counts`` (the host reads a
+    flag after every one; up to ``max_inner`` = S * S of them a round)."""
     dev = pal.device
     wch = torch.tensor([RED_MUL, GREEN_MUL, BLUE_MUL], dtype=torch.float32, device=dev) / LUMA_DIV
     iu_i, iu_j = (torch.as_tensor(v, device=dev) for v in np.triu_indices(S, 1))
@@ -168,7 +177,9 @@ def _optimize_palettes(pal, valid, S: int, max_rounds: int, max_inner: int):
     for _ in range(max_rounds):
         t = pal.sum(dim=0, keepdim=True) - pal - mean  # held fixed inside
         dt2 = 2.0 * (t[:, iu_i] - t[:, iu_j])  # [P, pairs, 3]
+        inner = 0
         for _ in range(max_inner):
+            inner += 1
             d = t + pal
             ss = (d * d).sum(dim=1)  # [P, 3]
             dss = (pal[:, iu_j] - pal[:, iu_i]) * dt2
@@ -185,6 +196,7 @@ def _optimize_palettes(pal, valid, S: int, max_rounds: int, max_inner: int):
             valid = valid.gather(1, sw)
             if not bool(do.any()):
                 break
+        inner_counts.append(inner)
         dall = (pal.sum(dim=0, keepdim=True) - pal) + pal - mean
         obj = (wch * torch.sqrt((dall ** 2).sum(dim=1) / S)).sum(dim=-1).mean()
         improved = bool(obj > prev_obj * (1 + 1e-5))
@@ -194,7 +206,29 @@ def _optimize_palettes(pal, valid, S: int, max_rounds: int, max_inner: int):
     return pal, valid
 
 
+def _median_cut_palettes(cols, wts, npix, S: int):
+    """The host median cut of every palette's sample, as the JAX package
+    runs it (``tiler_tpu/pipeline/palettes.py:155-190``): cols [P, n, 3],
+    wts [P, n] and npix [P] tensors in; numpy (rgb uint8 [P, S, 3], valid
+    bool [P, S]) out, HSV-sorted (Val, Sat, Hue) with invalid slots last."""
+    cols_h, wts_h = cols.cpu().numpy(), wts.cpu().numpy()
+    npix = npix.cpu().numpy().astype(np.int64)
+    cents = np.stack([median_cut(cols_h[p][wts_h[p] > 0], wts_h[p][wts_h[p] > 0], S)
+                      for p in range(len(cols_h))]).astype(np.float64)
+    rgb = np.clip(np.round(np.nan_to_num(cents)), 0, 255).astype(np.int64)
+    rgb = posterize(rgb, 255)  # the identity at 8 bits a component
+    valid = np.arange(S)[None, :] < np.minimum(S, npix)[:, None]
+    rgb[~valid] = 0
+    hsv = rgb_to_hsv_bytes(rgb)
+    sort_key = np.where(valid, (hsv[..., 2] << 16) | (hsv[..., 1] << 8) | hsv[..., 0], 1 << 40)
+    order = np.argsort(sort_key, axis=1, kind="stable")
+    return (np.take_along_axis(rgb, order[..., None], axis=1).astype(np.uint8),
+            np.take_along_axis(valid, order, axis=1))
+
+
 def quantization(state: EncodeState, settings: EncoderSettings) -> EncodeState:
+    """Per-palette colors, HSV-sorted: the k-means on the device, or
+    (``color_quantizer="mediancut"``) the host median cut."""
     P, S = settings.palette_count, settings.palette_size
     key = prng.prng_key(settings.seed)
     corpus = state.corpus_rgb
@@ -207,15 +241,36 @@ def quantization(state: EncodeState, settings: EncoderSettings) -> EncodeState:
     corpus = torch.nn.functional.pad(corpus, (0, 0, 0, 0, 0, 0, 0, Tpad - T))
     pidx = torch.nn.functional.pad(pidx, (0, Tpad - T), value=P)
     cols, wts, npix = _sample_member_pixels(corpus, pidx, P, COLOR_CAP, key)
-    seeds = np.arange(P) + settings.seed
-    cents = _kmeans_small_batch(cols, wts, seeds, S, settings.kmeans_iters)
-    rgb, valid = _hsv_sort(cents, npix, S)
-    pal, valid = _optimize_palettes(rgb, valid, S, MAX_ROUNDS, S * S)
+    if settings.color_quantizer == "mediancut":
+        rgb, valid = _median_cut_palettes(cols, wts, npix, S)
+    else:
+        cents = _kmeans_small_batch(cols, wts, np.arange(P) + settings.seed, S,
+                                    settings.kmeans_iters)
+        rgb, valid = _hsv_sort(cents, npix, S)
+    state.palettes_rgb = torch.as_tensor(rgb, device=dev).to(torch.uint8)
+    state.palettes_valid = torch.as_tensor(valid, device=dev)
+    return state
+
+
+def optimize_palettes(state: EncodeState, settings: EncoderSettings,
+                      stats: dict | None = None) -> EncodeState:
+    """The 2-opt on the palettes the state holds
+    (``tiler_tpu/pipeline/palettes.py:393-420``); its inner iterations a
+    round go to ``stats["two_opt_inner"]``."""
+    S = settings.palette_size
+    pal = torch.as_tensor(state.palettes_rgb).float()
+    valid = torch.as_tensor(state.palettes_valid)
+    inner = []
+    pal, valid = _optimize_palettes(pal, valid, S, MAX_ROUNDS, S * S, inner)
+    if stats is not None:
+        stats["two_opt_inner"] = inner
     state.palettes_rgb = pal.to(torch.uint8)
     state.palettes_valid = valid
     return state
 
 
-def prepare_palettes(state: EncodeState, settings: EncoderSettings) -> EncodeState:
+def prepare_palettes(state: EncodeState, settings: EncoderSettings,
+                     stats: dict | None = None) -> EncodeState:
     state = palettization(state, settings)
-    return quantization(state, settings)
+    state = quantization(state, settings)
+    return optimize_palettes(state, settings, stats)

@@ -49,6 +49,9 @@ TOL = 192.0  # cTileDCTSize comparison tolerance
 CELL_ROW = 8192  # cells per phase-A row
 TOPK_BUDGET = 4e9  # bytes of the [cells, T] f32 ranking matrix per pass
 INT32_MAX = 2**31 - 1
+# elements of _tile_quad's [tiles, S, S] products a chunk of tiles (1 GiB of
+# f32): 4,096 tiles at S = 256
+QUAD_CHUNK = 1 << 28
 
 
 def _render_corpus(palettes_rgb, pal_initial, pal_pixels):
@@ -79,18 +82,25 @@ def _tile_quad(G, S: int):
     """Per-tile quadratic form, packed upper triangle:
     Q[t, (c, s<=s')] = sum_v wf[v,c]^2 G[t,v,s] G[t,v,s'] with the
     off-diagonal entries doubled, so |rendered feature|^2 of (tile t,
-    palette j) is Q[t] . R[j]. [T, 3*S*(S+1)/2] float32."""
+    palette j) is Q[t] . R[j]. [T, 3*S*(S+1)/2] float32, 394,752 bytes a
+    tile at S = 256; built in chunks of tiles whose [tiles, S, S] products
+    hold at most ``QUAD_CHUNK`` elements (the whole corpus at S = 16)."""
     dev = G.device
     w = torch.as_tensor(DCT_WEIGHTS, dtype=torch.float32, device=dev)
     wf2 = (w * w).permute(1, 2, 0).reshape(64, 3)
     tri_i, tri_j = (torch.as_tensor(v, device=dev) for v in np.triu_indices(S))
     dbl = (tri_i != tri_j).float() + 1.0
-    Gf = G.float()
-    outs = [
-        torch.bmm((Gf * wf2[:, c][None, :, None]).transpose(1, 2), Gf)[:, tri_i, tri_j] * dbl
-        for c in range(3)
-    ]
-    return torch.stack(outs, dim=1).reshape(G.shape[0], -1)
+    T = G.shape[0]
+    chunk = max(1, QUAD_CHUNK // (S * S))
+    Q = torch.empty(T, 3 * len(tri_i), dtype=torch.float32, device=dev)
+    for i in range(0, T, chunk):
+        Gf = G[i:i + chunk].float()
+        outs = [
+            torch.bmm((Gf * wf2[:, c][None, :, None]).transpose(1, 2), Gf)[:, tri_i, tri_j] * dbl
+            for c in range(3)
+        ]
+        Q[i:i + chunk] = torch.stack(outs, dim=1).reshape(Gf.shape[0], -1)
+    return Q
 
 
 def _topk_oneshot(feats, ds, k: int):
