@@ -87,15 +87,33 @@ Run from the repository root:  python3 chip_smoke.py
      bytes against the default, printed (another encoder: no gate).
    Each prints T, the stages (of a second encode where there is one), the
    peak of allocated device memory and the 2-opt's inner iterations a
-   round. Then tk_select_wide is held bit-identical to its plain version
-   at S = 33, 64, 128, 256 on random and adversarial tiles, and at each
-   wide path's launch (wide256's T, P = 16, S = 256 and wide64's T,
-   P = 1,024, S = 64), where both are timed; the kernels line gives the
-   wide256 figures and, under "shapes", each path's.
+   round.
+9. The EPU's two table settings, with the launch counts as in 8:
+   - wide256_two_stage: wide256 with epu_two_stage=True (int8/int16
+     stage-1 tables, the top 16 pairs re-ranked exactly), two encodes:
+     tk_select_wide once, the stream read back as wide256's; prints T,
+     the stages and the peak beside wide256's, and PSNR-HVS and bytes
+     against it (another encoder: no gate);
+   - wide256_fused: wide256 with epu_fused_fp=True (one byte-row table,
+     one gather), one encode: saved under wide256's settings text (the
+     stream embeds its settings), the state must write wide256's stream
+     to the byte; prints reconstruct and the peak beside wide256's;
+   - fused_fp: the defaults with epu_fused_fp=True, 32 frames, one
+     encode: tk_select once and B2 57 times, and the default path's
+     stream to the byte in the same way.
+   Then tk_select_wide is held bit-identical to its plain version at
+   S = 33, 48, 64, 128, 200, 256 on random, adversarial and slot-edge
+   tiles (invalid slots below the first valid one, no valid color, a
+   single valid slot at S - 1, partly padded groups of 16 rows), and at
+   each wide path's launch (wide256's T, P = 16, S = 256 and wide64's T,
+   P = 1,024, S = 64), where both are timed on palettes with every slot
+   valid (the encoder's palettes are nearly full) beside the bound over
+   the colors the function needs; the kernels line gives the wide256
+   figures and, under "shapes", each path's.
 
 Prints per-stage times, then a JSON line of the kernels, the card line,
 and last {"ok": true, "device": {...}}. Exits nonzero on any failure.
-Takes about three and a half minutes on one H100, the kernels' build included.
+Takes about four minutes on one H100, the kernels' build included.
 """
 import json
 import os
@@ -136,9 +154,13 @@ EXPECT_LAUNCHES = {"default": {"tk_select": 1, "knn_bucket_top2": 57},
                    "wide256": {"tk_select": 0, "tk_select_wide": 1, "knn_bucket_top2": 0},
                    "wide64": {"tk_select": 0, "tk_select_wide": 1, "knn_bucket_top2": 57},
                    "plain_tk": {"tk_select": 0, "tk_select_wide": 0, "knn_bucket_top2": 57},
-                   "mediancut_wavelets": {"tk_select": 1, "knn_bucket_top2": 57}}
+                   "mediancut_wavelets": {"tk_select": 1, "knn_bucket_top2": 57},
+                   "wide256_two_stage": {"tk_select": 0, "tk_select_wide": 1,
+                                         "knn_bucket_top2": 0},
+                   "wide256_fused": {"tk_select": 0, "tk_select_wide": 1, "knn_bucket_top2": 0},
+                   "fused_fp": {"tk_select": 1, "tk_select_wide": 0, "knn_bucket_top2": 57}}
 # the wide kernel's palette sizes held against its plain version
-WIDE_S = (33, 64, 128, 256)
+WIDE_S = (33, 48, 64, 128, 200, 256)
 # the clip's device bytes at 1280x720x32 (frames and canonical tiles, ~177
 # MB): the host paths set their budgets below it
 CLIP_BYTES = 32 * 720 * 1280 * 3 + 32 * 90 * 160 * 192
@@ -211,9 +233,9 @@ def _tk_same(torch, tk, args, what):
     return int((got.int() - want.int()).abs().max())
 
 
-def _tk_random(torch, dev, T, P, S, seed):
-    """Random tiles, mirrors, palette indexes and a palette table (90% of
-    the slots valid) on ``dev``."""
+def _tk_random(torch, dev, T, P, S, seed, valid=0.9):
+    """Random tiles, mirrors, palette indexes and a palette table (a
+    share ``valid`` of the slots valid) on ``dev``."""
     from tiler_tpu_torch.kernels import tk_dither as tk
 
     rng = np.random.default_rng(seed)
@@ -221,17 +243,20 @@ def _tk_random(torch, dev, T, P, S, seed):
     mirror = torch.as_tensor(rng.integers(0, 4, T, dtype=np.uint8), device=dev)
     pidx = torch.as_tensor(rng.integers(0, P, T, dtype=np.int32), device=dev)
     pal = torch.as_tensor(rng.integers(0, 256, (P, S, 3), dtype=np.int32), device=dev)
-    valid = torch.as_tensor(rng.random((P, S)) < 0.9, device=dev)
+    valid = torch.as_tensor(rng.random((P, S)) < valid, device=dev)
     return pix, mirror, pidx, tk.pal_table(pal, valid)
 
 
 def _tk_bound(tk, pix, mirror, pidx, table):
     """tk_select's least time: bytes (each input once, the palette table
     whole, the slots out) or ~14 integer operations per (pixel, step,
-    candidate color) at the fp32 rate, whichever is larger."""
-    T, S = pix.shape[0], table.shape[1]
+    candidate color) at the fp32 rate, whichever is larger. The candidate
+    colors are those the function needs: each tile's palette's valid
+    slots (at least one: a palette without one gives slot 0)."""
+    T = pix.shape[0]
     n_bytes = pix.numel() + mirror.numel() + 4 * pidx.numel() + 4 * table.numel() + T * 64
-    triples = float(T) * 64 * tk.STEPS * S
+    colors = float((table[:, :, 4] > 0).sum(dim=1).clamp_min(1)[pidx.long()].sum())
+    triples = colors * 64 * tk.STEPS
     return bound_ms(n_bytes, 14.0 * triples, FP32_OPS) + (triples,)
 
 
@@ -241,6 +266,10 @@ def check_tk(torch, dev, T=CORPUS_T, P=1024, S=16):
 
     pix, mirror, pidx, table = _tk_random(torch, dev, T, P, S, 1)
     err = _tk_same(torch, tk, (pix, mirror, pidx, table), "random tiles")
+    # timed on palettes with every slot valid, as the encoder's nearly are
+    table = _tk_random(torch, dev, 1, P, S, 1, valid=1.0)[3]
+    err = max(err, _tk_same(torch, tk, (pix, mirror, pidx, table),
+                            "random tiles, full palettes"))
     # the adversarial tiles at the launch's size, then the wide
     # instantiation and a one-color palette at a smaller one
     for s_adv, reps in ((S, -(-T // 40)), (17, 50), (32, 50), (1, 50)):
@@ -288,20 +317,23 @@ def check_tk(torch, dev, T=CORPUS_T, P=1024, S=16):
 def check_tk_wide(torch, dev, launches):
     """tk_select_wide (S = 33..256) against its plain version: bit-
     identical at every S of WIDE_S on 1,001 random tiles (a partly empty
-    last block) and on the adversarial ones, then at each wide path's
-    launch, ``launches`` {path: (T, P, S)}, timed there. Returns the first
-    path's figures, with every path's under "shapes"."""
+    last block), on the adversarial ones and on those of slot_edge_case
+    (invalid slots below the first valid one, no valid color, a single
+    valid slot at S - 1, partly padded groups of 16 rows), then at each
+    wide path's launch, ``launches`` {path: (T, P, S)}, and timed there on
+    palettes with every slot valid. Returns the first path's figures, with every path's under "shapes"."""
     from tiler_tpu_torch.kernels import _build
     from tiler_tpu_torch.kernels import tk_dither as tk
 
     for s in WIDE_S:
         _tk_same(torch, tk, _tk_random(torch, dev, 1001, 7, s, s), f"random tiles, S={s}")
-        case = tk.adversarial_case(s, seed=s, reps=10)
-        args = [torch.as_tensor(a, device=dev) for a in case[:3]]
-        args.append(tk.pal_table(torch.as_tensor(case[3], device=dev),
-                                 torch.as_tensor(case[4], device=dev)))
-        _tk_same(torch, tk, args, f"the adversarial tiles, S={s}")
-        print(f"tk_select_wide: 1001 random and {len(case[0])} adversarial tiles S={s}: "
+        for gen, case in (("adversarial", tk.adversarial_case(s, seed=s, reps=10)),
+                          ("slot-edge", tk.slot_edge_case(s, seed=s, reps=10))):
+            args = [torch.as_tensor(a, device=dev) for a in case[:3]]
+            args.append(tk.pal_table(torch.as_tensor(case[3], device=dev),
+                                     torch.as_tensor(case[4], device=dev)))
+            _tk_same(torch, tk, args, f"the {gen} tiles, S={s}")
+        print(f"tk_select_wide: 1001 random, adversarial and slot-edge tiles S={s}: "
               "bit-identical", flush=True)
     used = _build.kernel_resources("tk_select_wide_kernel")
     res = used[0] if used else None
@@ -309,12 +341,17 @@ def check_tk_wide(torch, dev, launches):
     for path, (T, P, S) in launches.items():
         pix, mirror, pidx, table = _tk_random(torch, dev, T, P, S, 5)
         err = _tk_same(torch, tk, (pix, mirror, pidx, table), f"random tiles, S={S}")
+        # timed on palettes with every slot valid, as the encoder's nearly
+        # are: the scan runs over the valid rows only
+        table = _tk_random(torch, dev, 1, P, S, 5, valid=1.0)[3]
+        err = max(err, _tk_same(torch, tk, (pix, mirror, pidx, table),
+                                f"random tiles, full palettes, S={S}"))
         ms = cuda_ms(lambda: tk.tk_select_wide(pix, mirror, pidx, table), 5)
         plain_ms = cuda_ms(lambda: tk.tk_select_plain(pix, mirror, pidx, table), 1)
         bms, by, _ = _tk_bound(tk, pix, mirror, pidx, table)
         print(f"tk_select_wide at {path}'s launch, {T} tiles P={P} S={S}: bit-identical; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by}), "
-              f"{bms / ms:.1%} of the bound; "
+              f"on full palettes kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bms:.4f} ms ({by}), {bms / ms:.1%} of the bound; "
               + (f"ptxas: {res['registers']} registers, {res['spill_store_bytes']} / "
                  f"{res['spill_load_bytes']} bytes of spill stores / loads, "
                  f"{res['stack_bytes']} bytes of stack" if res else "ptxas: not built here"),
@@ -844,6 +881,60 @@ def y4m_device_ingest(F=8, H=288, W=352):
     return out
 
 
+def resaved(**defaults):
+    """encode_path's after-hook of the EPU table settings: the encoder's
+    state saved once more under the settings text of ``defaults`` (the
+    stream embeds its settings, and EpuFusedFp is one of them), so that
+    the bytes compare with the stream of the path without the setting."""
+    import dataclasses
+
+    def save(enc, stream):
+        settings = enc.settings
+        enc.settings = dataclasses.replace(settings, **defaults)
+        enc.save(stream + ".resaved")
+        enc.settings = settings
+        with open(stream + ".resaved", "rb") as f:
+            return {"resaved": f.read()}
+
+    return save
+
+
+def epu_paths(default, wide256):
+    """The EPU's two table settings (point 9 of the module docstring),
+    against the paths without them."""
+    from tiler_tpu_torch.config import EncoderSettings
+
+    wide = dict(palette_count=16, palette_size=256)
+    out = {"wide256_two_stage": encode_path(
+        "wide256_two_stage", EncoderSettings(**wide, epu_two_stage=True), ("tk_select_wide",),
+        F=8, min_corpus=0, after=read_back(16, 256))}
+    out["wide256_fused"] = encode_path(
+        "wide256_fused", EncoderSettings(**wide, epu_fused_fp=True), ("tk_select_wide",),
+        F=8, min_corpus=0, again=False, after=resaved(epu_fused_fp=False))
+    out["fused_fp"] = encode_path("fused_fp", EncoderSettings(epu_fused_fp=True),
+                                  ("tk_select", "knn_bucket_top2"), again=False,
+                                  after=resaved(epu_fused_fp=False))
+    for name, ref in (("wide256_two_stage", wide256), ("wide256_fused", wide256),
+                      ("fused_fp", default)):
+        run = out[name]
+        check_against_reference(name, run, corpus=None if name.startswith("wide") else CORPUS_T)
+        if "resaved" in run and run.pop("resaved") != ref["stream"]:
+            raise AssertionError(f"the {name} encode, saved under the settings text of the "
+                                 "path without the setting, is not that path's stream")
+        stages = run.get("second_stage_s", run["stage_s"])
+        print(f"[{name}] against {'wide256' if ref is wide256 else 'default'}: PSNR-HVS "
+              f"{run['psnr_hvs_db'] - ref['psnr_hvs_db']:+.4f} dB, bytes "
+              f"{(run['bytes'] - ref['bytes']) / ref['bytes']:+.4%}, T {run['corpus_tiles']} / "
+              f"{ref['corpus_tiles']}, reconstruct {stages['reconstruct']:.3f} / "
+              f"{ref['second_stage_s']['reconstruct']:.3f} s, peak device memory allocated "
+              f"{run['peak_bytes']} / {ref['peak_bytes']} bytes"
+              + ("" if "two_stage" in name else ", the same stream to the byte"), flush=True)
+    print("[wide256_two_stage] second encode, stage (s): wide256_two_stage / wide256: "
+          + " ".join(f"{k}={v:.3f}/{wide256['second_stage_s'][k]:.3f}"
+                     for k, v in out["wide256_two_stage"]["second_stage_s"].items()), flush=True)
+    return out
+
+
 def wide_paths(default):
     """The wide palettes and the other palette and dither settings (point
     8 of the module docstring), each against the default encode."""
@@ -968,6 +1059,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide = wide_paths(default)
     torch.cuda.empty_cache()
+    epu_paths(default, wide["wide256"])
+    torch.cuda.empty_cache()
     checks["tk_select_wide"] = check_tk_wide(
         torch, dev, {"wide256": (wide["wide256"]["corpus_tiles"], 16, 256),
                      "wide64": (wide["wide64"]["corpus_tiles"], 1024, 64)})
@@ -1001,8 +1094,8 @@ def main() -> int:
          # at, and ptxas's registers and spill; tk_select_wide its figures
          # at each wide path's launch
          **{key: checks[name][key] for key in ("issue_floor_ms", "int32_floor_ms",
-                                               "sm_clock_mhz", "registers", "spill_bytes",
-                                               "shapes")
+                                               "sm_clock_mhz", "registers",
+                                               "spill_bytes", "shapes")
             if key in checks[name]}}
         for name, (src, replaces) in sources.items()]
     print(f"chip_smoke: every phase passed in {time.monotonic() - t_start:.1f} s", flush=True)

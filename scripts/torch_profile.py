@@ -36,12 +36,18 @@ timed in turns within one call on one card.
 
 instead times tk_select by CUDA events at the main path's corpus (T =
 116,097 tiles, P = 1,024 palettes) for S = 16 (the narrow kernel) and
-S = 33, 64, 128, 256 (tk_select_wide), on random tiles and palettes,
-each beside its bound (~14 integer operations per pixel, step and
-candidate color at the 67 TFLOP/s fp32 rate); the kernel's time does not
-depend on the data.
+S = 33, 64, 128, 256 (tk_select_wide), then at the wide256 and wide64
+paths' launches (T = 36,307, P = 16, S = 256; T = 116,097, P = 1,024,
+S = 64), on random tiles and palettes with every slot valid and with
+90% of them valid, each beside its bound (~14 integer operations per
+pixel, step and valid candidate color at the 67 TFLOP/s fp32 rate). It
+first prints ptxas's report of both kernels and the issue slots a triple
+of the wide scan's innermost loop, counted in the SASS (IMADs x 2, the
+rest x 1), and with them the time those slots take for the valid rows
+(the group padding left out) at the SM clock. With --root DIR it times
+another checkout's kernels (an unpacked parent commit, say).
 
-    python3 scripts/torch_profile.py --wide-memory [FRAMES ...]
+    python3 scripts/torch_profile.py --wide-memory [FRAMES ...] [--epu two_stage|fused]
 
 instead encodes 1280x720xFRAMES synthetic clips (8, 16, 32, 48 and 64 frames
 by default) at palette_count=16, palette_size=256, once each, and prints
@@ -51,12 +57,15 @@ caching allocator's retries (a retry frees the cache and synchronizes);
 an encode that runs out of device memory is
 printed with its T and the run goes on. The EPU tables grow with T
 (394,752 bytes of Q and 32,768 of G a tile at S = 256), so this finds the
-largest corpus that fits the card at the widest palette.
+largest corpus that fits the card at the widest palette. With
+``--epu two_stage`` or ``--epu fused`` (after the frame counts) the
+encodes take epu_two_stage=True or epu_fused_fp=True.
 
-    python3 scripts/torch_profile.py --wide-profile
+    python3 scripts/torch_profile.py --wide-profile [--epu two_stage|fused]
 
 instead profiles the widest palette's encode as the default mode profiles
-the two paths: palette_count=16, palette_size=256 on the 1280x720x32 clip.
+the two paths: palette_count=16, palette_size=256 on the 1280x720x32 clip,
+under the EPU table setting --epu names.
 
     python3 scripts/torch_profile.py --long-clip [FRAMES]
 
@@ -243,26 +252,103 @@ def encode_times(clip, reps=3):
                   flush=True)
 
 
+def sass_loop_slots(so, kernel="tk_select_wide_kernel", marker="FFMA.RZ", triples=32):
+    """The innermost loop of ``kernel`` in the library's SASS (cuobjdump
+    -sass): the smallest span between a backward branch and its target
+    that holds ``marker`` at least ``triples / 2`` times (the wide scan's
+    group of 16 rows for two pixels: 32 FFMA.RZ). Returns (issue slots a
+    triple at IMADs x 2 and every other instruction x 1, {opcode: count}),
+    None without cuobjdump; raises if the kernel has no such loop."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    body = next(part for part in text.split("Function : ")[1:]
+                if part.split()[0].find(kernel) >= 0)
+    ins, labels = [], {}
+    for line in body.splitlines():
+        lab = re.match(r"\s*\.(L_x_\d+):", line)
+        if lab:
+            labels[lab.group(1)] = len(ins)
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2).strip()))
+    at = {addr: i for i, (addr, _) in enumerate(ins)}
+    loops = []
+    for i, (_, op) in enumerate(ins):
+        if not re.search(r"(^|\s)BRA(\.\S+)?\s", op):
+            continue
+        lab = re.search(r"\.(L_x_\d+)", op)
+        hexa = re.search(r"BRA\S*\s+(?:\S+,\s*)?0x([0-9a-f]+)", op)
+        j = labels.get(lab.group(1)) if lab else (at.get(int(hexa.group(1), 16)) if hexa
+                                                   else None)
+        if j is not None and j <= i:
+            loops.append(ins[j:i + 1])
+    hits = [lp for lp in loops if sum(marker in op for _, op in lp) >= triples // 2]
+    if not hits:
+        raise RuntimeError(f"no loop of {kernel} holds {triples // 2} {marker}")
+    ops = {}
+    for _, op in min(hits, key=len):
+        name = op.split()[1] if op.startswith("@") else op.split()[0]
+        ops[name] = ops.get(name, 0) + 1
+    slots = sum(n * (2 if name.startswith("IMAD") else 1) for name, n in ops.items())
+    return slots / triples, dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+
+
 def tk_wide(T=116097, P=1024, reps=5):
+    from tiler_tpu_torch.kernels import _build
     from tiler_tpu_torch.kernels import tk_dither as tk
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke as cs
 
+    so = _build.build(verbose=True)
+    for r in _build.kernel_resources("tk_select"):
+        print(f"[tk wide] ptxas {r}", flush=True)
+    try:
+        sass = sass_loop_slots(so)
+        print("[tk wide] SASS: " + (f"the wide scan's group loop takes {sass[0]:.3f} issue "
+                                    f"slots a triple (IMAD x 2); opcodes {sass[1]}" if sass
+                                    else "no cuobjdump"), flush=True)
+    except RuntimeError as e:  # another design (an older checkout under --root)
+        sass = None
+        print(f"[tk wide] SASS: {e}", flush=True)
     dev = torch.device("cuda")
-    for S in (16, 33, 64, 128, 256):
-        args = cs._tk_random(torch, dev, T, P, S, S)
-        ms = cs.cuda_ms(lambda: tk.tk_select(*args), reps)
-        bms, by, _ = cs._tk_bound(tk, *args)
-        kname = "tk_select" if S <= tk.NARROW_S else "tk_select_wide"
-        print(f"[tk wide] {kname} T={T} P={P} S={S}: {ms:.3f} ms, bound {bms:.3f} ms ({by}), "
-              f"{bms / ms:.1%} of the bound", flush=True)
+    launches = [(T, P, S) for S in (16, 33, 64, 128, 256)]
+    # the two wide paths' launches in chip_smoke.py: wide256 and wide64
+    launches += [(36307, 16, 256), (116097, 1024, 64)]
+    for T, P, S in launches:
+        pix, mirror, pidx, _ = cs._tk_random(torch, dev, T, P, S, S)
+        for valid in (1.0, 0.9):
+            table = cs._tk_random(torch, dev, 1, P, S, S, valid=valid)[3]
+            args = (pix, mirror, pidx, table)
+            ms = cs.cuda_ms(lambda: tk.tk_select(*args), reps)
+            clock = cs.sm_clock_hz()
+            bms, by, triples = cs._tk_bound(tk, *args)
+            kname = "tk_select" if S <= tk.NARROW_S else "tk_select_wide"
+            floor = (f"; at {clock / 1e6:.0f} MHz the SASS's slots take "
+                     f"{1e3 * sass[0] * triples / (128 * cs.SM_COUNT * clock):.3f} ms for "
+                     "the valid rows" if sass and S > tk.NARROW_S else "")
+            print(f"[tk wide] {kname} T={T} P={P} S={S}, {valid:.0%} of the slots valid: "
+                  f"{ms:.3f} ms, bound {bms:.3f} ms ({by}), {bms / ms:.1%} of the bound{floor}",
+                  flush=True)
+        del pix, mirror, pidx, table, args
+        torch.cuda.empty_cache()
 
 
-def wide_memory(frames=(8, 16, 32, 48, 64), H=720, W=1280):
+# --epu: the EPU table settings a --wide-memory run can take
+EPU = {"default": {}, "two_stage": {"epu_two_stage": True}, "fused": {"epu_fused_fp": True}}
+
+
+def wide_memory(frames=(8, 16, 32, 48, 64), H=720, W=1280, epu="default"):
     out = os.path.join(ROOT, "build", "torch_profile")
     os.makedirs(out, exist_ok=True)
-    settings = EncoderSettings(palette_count=16, palette_size=256)
+    settings = EncoderSettings(palette_count=16, palette_size=256, **EPU[epu])
+    print(f"[wide memory] EPU tables: {epu}", flush=True)
     for F in frames:
         clip = synthetic_clip(F, H, W)
         enc = Encoder(settings, device="cuda", log=None)
@@ -358,9 +444,16 @@ def main() -> int:
     if "--tk-wide" in sys.argv[1:]:
         tk_wide()
         return 0
-    if "--wide-memory" in sys.argv[1:]:
-        rest = [int(a) for a in sys.argv[sys.argv.index("--wide-memory") + 1:] if a.isdigit()]
-        wide_memory(*([tuple(rest)] if rest else []))
+    args = sys.argv[1:]
+    epu = args[args.index("--epu") + 1] if "--epu" in args else "default"
+    if epu not in EPU:
+        print(f"torch_profile: --epu takes one of {sorted(EPU)}", file=sys.stderr)
+        return 2
+    if "--wide-memory" in args:
+        rest = args[args.index("--wide-memory") + 1:]
+        frames = [int(a) for a in rest[:rest.index("--epu")] if a.isdigit()] if "--epu" in rest \
+            else [int(a) for a in rest if a.isdigit()]
+        wide_memory(*([tuple(frames)] if frames else []), epu=epu)
         return 0
     if "--long-clip" in sys.argv[1:]:
         rest = sys.argv[sys.argv.index("--long-clip") + 1:]
@@ -368,7 +461,8 @@ def main() -> int:
         return 0
     clip = synthetic_clip(32, 720, 1280)
     if "--wide-profile" in sys.argv[1:]:
-        profile_path("wide256", EncoderSettings(palette_count=16, palette_size=256), clip)
+        profile_path(f"wide256_{epu}", EncoderSettings(palette_count=16, palette_size=256,
+                                                       **EPU[epu]), clip)
         return 0
     if "--encode-times" in sys.argv[1:]:
         encode_times(clip)

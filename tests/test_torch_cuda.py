@@ -87,7 +87,7 @@ def test_tk_kernel_truncations_are_exact(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [33, 64, 128, 256])
+@pytest.mark.parametrize("S", [33, 64, 128, 256, 48, 200])
 @pytest.mark.parametrize("T", [1, 3, 4 * 33 + 1])
 def test_tk_wide_kernel_matches_plain(cuda, S, T):
     """The wide kernel (S = 33..256) on random tiles, in tile counts that
@@ -119,6 +119,37 @@ def test_tk_wide_kernel_adversarial_cases(cuda, S):
     got = t_tk.tk_select_wide(*(a.to(cuda) for a in args), table.to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+# the palettes of kernels/tk_dither.py slot_edge_case, in its order
+SLOT_EDGES = ("invalid_below_first", "one_color_upper_half", "no_valid", "single_valid_last",
+              "groups_16k_1", "groups_16k_15", "half_valid", "ties_across_groups")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("palette", range(len(SLOT_EDGES)), ids=SLOT_EDGES)
+@pytest.mark.parametrize("S", [33, 48, 64, 200, 256])
+def test_tk_wide_kernel_slot_edges(cuda, S, palette):
+    """The wide kernel scans the valid rows only, in slot order, padded to
+    groups of 16: invalid slots below the first valid one that hold its
+    colors, no valid color (slot 0), a single valid slot at S - 1 (255 at
+    S = 256), partly padded groups, ties across a group boundary; each
+    palette against its four kinds of tiles, bit-identical."""
+    pix, mirror, pidx, pal, valid = t_tk.slot_edge_case(S, seed=S)
+    keep = pidx == palette
+    args = [torch.as_tensor(a[keep]) for a in (pix, mirror, np.zeros_like(pidx))]
+    table = t_tk.pal_table(torch.as_tensor(pal[palette:palette + 1]),
+                           torch.as_tensor(valid[palette:palette + 1]))
+    want = t_tk.tk_select_plain(*args, table)
+    got = t_tk.tk_select_wide(*(a.to(cuda) for a in args), table.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if SLOT_EDGES[palette] == "no_valid":
+        assert (want == 0).all()
+    if SLOT_EDGES[palette] == "single_valid_last":
+        assert (want == S - 1).all()
+    if SLOT_EDGES[palette] == "invalid_below_first":
+        assert (want >= S // 3).all()
 
 
 @pytest.mark.cuda

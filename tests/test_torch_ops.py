@@ -149,14 +149,17 @@ def test_metrics():
 
 # each case keeps the id it had before the settings ported since left
 # the list (int16_features-6, host_ram_budget-10, hbm_frames_budget-14,
-# use_pallas_tk-12 and palette sizes up to 256 are accepted now;
+# use_pallas_tk-12, palette sizes up to 256, epu_two_stage-2 and
+# epu_fused_fp-3 are accepted now, and ids 2 and 3 name the two-stage
+# EPU's own settings;
 # phase_b_motion-7, color_quantizer-9 and dithering_mode-13 are unknown
 # names, palette_size-16 and -17 sizes a byte cannot index)
 OFF_SLICE = [
     ("knn_backend-0", "knn_backend", dict(knn_backend="ivf")),
     ("knn_backend-1", "knn_backend", dict(knn_backend="pallas_v3")),  # no such backend
-    ("epu_two_stage-2", "epu_two_stage", dict(epu_two_stage=True)),
-    ("epu_fused_fp-3", "epu_fused_fp", dict(epu_fused_fp=True)),
+    # the two-stage EPU's stage 1 ranks on the r x r low-frequency block
+    ("epu_stage1_dims-2", "epu_stage1_dims", dict(epu_two_stage=True, epu_stage1_dims=50)),
+    ("epu_stage1_m-3", "epu_stage1_m", dict(epu_two_stage=True, epu_stage1_m=0)),  # no pair
     ("motion_field-4", "motion_field", dict(motion_field="im2col")),  # no such field
     ("motion_rank_dims-5", "motion_rank_dims", dict(motion_rank_dims=48)),
     ("phase_b_motion-7", "phase_b_motion", dict(phase_b_motion="recompute")),  # no such mode
@@ -194,14 +197,18 @@ ENCODED = {"int16": dict(int16_features=True), "research": dict(phase_b_motion="
            "use_pallas_tk-12": dict(use_pallas_tk=False),
            "color_quantizer-9": dict(color_quantizer="mediancut"),
            "dithering_mode-13": dict(dithering_mode="wavelets"),
-           "palette_size-64": dict(palette_size=64), "palette_size-256": dict(palette_size=256)}
+           "palette_size-64": dict(palette_size=64), "palette_size-256": dict(palette_size=256),
+           "epu_two_stage-2": dict(epu_two_stage=True), "epu_fused_fp-3": dict(epu_fused_fp=True)}
 
 
 @pytest.mark.parametrize("overrides", [
     dict(dithering_use_thomas_knoll=False),
     dict(dithering_use_thomas_knoll=False, dithering_yliluoma2_mixed_colors=16),
-    dict(scaling=0.5), dict(scaling=2.0, device_resample=False), *ENCODED.values(),
-], ids=["yliluoma2", "yliluoma2_16", "scaling_half", "scaling_host", *ENCODED])
+    dict(scaling=0.5), dict(scaling=2.0, device_resample=False),
+    # stage 1's settings are read only under two-stage, as in the JAX package
+    dict(epu_stage1_dims=50, epu_stage1_m=0), *ENCODED.values(),
+], ids=["yliluoma2", "yliluoma2_16", "scaling_half", "scaling_host", "stage1_unread",
+        *ENCODED])
 def test_ported_settings_are_accepted(overrides):
     t_encoder.check_settings(EncoderSettings(**overrides))
     if overrides in ENCODED.values():

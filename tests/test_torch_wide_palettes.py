@@ -102,6 +102,87 @@ def test_tk_plain_matches_the_xla_path_at_256():
     assert np.array_equal(got, _jax_tk(*case, pallas=False))
 
 
+@pytest.mark.parametrize("S", [40, 200])
+def test_tk_plain_matches_the_xla_path_on_slot_edges(S):
+    """Invalid slots below the first valid one that hold valid colors, no
+    valid color, a single valid slot at S - 1, groups of 16 rows left
+    partly padded (kernels/tk_dither.py slot_edge_case)."""
+    case = t_tk.slot_edge_case(S, seed=S)
+    assert case[3].shape == (8, S, 3)  # test_torch_cuda.SLOT_EDGES names the eight
+    got = t_tk.tk_select(*_port_args(*case)).numpy()
+    assert np.array_equal(got, _jax_tk(*case, pallas=False))
+    pidx = case[2]
+    assert (got[pidx == 2] == 0).all() and (got[pidx == 3] == S - 1).all()
+
+
+def _tk_wide_model(pix, mirror, pidx, table):
+    """csrc/tk_dither.cu's wide kernel in numpy, step for step: the valid
+    rows compacted in slot order and padded to whole groups of 16 with
+    copies of the last one (16 black rows of slot 0 without a valid
+    color), the key 208 * bits + ((B * B + bias) << 9 | j) modulo 2^32
+    with j the row's position in its group, each group's minimum merged
+    into the best by a strict < on the key with its 4 position bits
+    cleared, the position mapped back to its slot, and the rank found by
+    the 24-bit binary search over the stored keys."""
+    M = 1 << 32
+    c001, c009 = float(np.float32(0.001)), float(np.float32(0.09))
+    out = np.zeros((len(pix), 64), np.uint8)
+    for t in range(len(pix)):
+        pal = table[pidx[t]].astype(np.int64)
+        vs = np.flatnonzero(pal[:, 4] > 0)
+        rows = 16 * -(-len(vs) // 16) if len(vs) else 16
+        src = np.concatenate([vs, np.full(rows - len(vs), vs[-1] if len(vs) else -1)])
+        color = np.where(src[:, None] >= 0, pal[np.maximum(src, 0), :4], 0)  # r, g, b, luma
+        psq = (color[:, :3] ** 2).sum(1)
+        j = np.arange(rows) % 16
+        px = pix[t].astype(np.int64)
+        err = np.zeros((64, 3), np.int64)
+        keys = np.zeros((64, 64), np.int64)  # [step, pixel]
+        for c in range(64):
+            tgt = px + np.sign(err) * np.floor(np.abs(err) * c009).astype(np.int64)
+            lum_t = tgt @ np.array([299, 587, 114])
+            bias = ((208 * (tgt * tgt).sum(1) - 0x24000000 + 511) % M) >> 9
+            bits = 0x4B400000 + psq[None, :] - 2 * tgt @ color[:, :3].T  # [64, rows]
+            q = np.floor(np.abs(lum_t[:, None] - color[None, :, 3]) * c001).astype(np.int64)
+            B = 0x4B000000 + q
+            key = (208 * bits + ((((B * B + bias[:, None]) << 9) % M) | j)) % M
+            gmin = key.reshape(64, rows // 16, 16).min(-1)
+            best = np.full(64, M - 1)
+            group = np.zeros(64, np.int64)
+            for g in range(rows // 16):
+                lt = gmin[:, g] < (best & ~15)
+                best = np.where(lt, gmin[:, g], best)
+                group = np.where(lt, g, group)
+            pos = 16 * group + (best & 15)
+            err += px - color[pos, :3]
+            keys[c] = ((color[pos, 3] * 64 + c) << 8) | np.maximum(src[pos], 0)
+        bay, _, _ = _bayer(mirror[t:t + 1])
+        for p in range(64):
+            k, lo = keys[:, p], 0
+            for bit in range(23, -1, -1):
+                mid = lo | (1 << bit)
+                if (k < (mid << 8)).sum() <= bay[0].reshape(64)[p]:
+                    lo = mid
+            out[t, p] = k[(k >> 8) == lo][-1] & 255
+    return out
+
+
+@pytest.mark.parametrize("S,case", [(48, "slot_edge"), (33, "adversarial")])
+def test_tk_wide_kernel_design_matches_plain(S, case):
+    """The wide kernel's design (csrc/tk_dither.cu header points 9-11),
+    modelled in numpy, picks what the plain version picks, on the tiles
+    that provoke its compaction and on the equal-luma, duplicate and
+    error-growth tiles."""
+    if case == "slot_edge":
+        pix, mirror, pidx, pal, valid = t_tk.slot_edge_case(S, seed=S)
+    else:
+        pix, mirror, pidx, pal, valid = t_tk.adversarial_case(S, seed=S, reps=1)
+        pix, mirror, pidx = pix[:24], mirror[:24], pidx[:24]
+    args = _port_args(pix, mirror, pidx, pal, valid)
+    want = t_tk.tk_select_plain(*args).numpy()
+    assert np.array_equal(_tk_wide_model(pix, mirror, pidx, args[3].numpy()), want)
+
+
 def test_wide_wrapper_takes_only_wide_palettes():
     case = t_tk.adversarial_case(16, seed=0, reps=1)
     with pytest.raises(ValueError, match="not above 32"):

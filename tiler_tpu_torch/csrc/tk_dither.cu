@@ -87,29 +87,46 @@
 // S = 33..256: tk_select_wide_kernel, one kernel for every S of the range
 // (GTM writes a slot as a byte), S a run-time argument. Points 1, 3, 4 and
 // 8 hold as they are; where the narrow design does not stretch:
-// 9. The palette load. ceil(S / 32) ballots find the first valid slot,
-//    which every invalid row copies (point 5); lane l writes rows l, l +
-//    32, ... A picked slot is always a valid one's own row (or row 0 of a
-//    palette without a valid color, black): the feedback color is read
-//    back from the row, (r, g, b) = -(row.y, row.z, row.w) / 2, exact.
-// 10. The key. The scan keeps the 32-bit key of point 4 without slot bits,
-//    16 * pen + slack < 2^32, and the row's slot beside it: a strict `<` in
-//    slot order keeps the first minimum (an invalid row carries the first
-//    valid slot's key and slot, and ties between valid slots go to the
-//    lower one). No 64-bit key: an 8-bit slot below it would need 40 bits.
+// 9. Valid rows compacted in slot order. ceil(S / 32) ballots give each
+//    valid slot its position among the nv valid ones; the scan runs over
+//    16 * ceil(nv / 16) positions, and a byte map in shared memory turns
+//    the picked position back into its slot, once a pick. Positions past
+//    nv copy the last valid row, so they lose every tie to it; a palette
+//    without a valid color scans 16 black rows of slot 0, the TPU
+//    kernel's result. (Point 5's copy of the first valid row cannot stand
+//    here: with the slot implicit in the position, an invalid slot below
+//    the first valid one would win its ties.) Palettes with unused colors
+//    scan fewer rows. The feedback color is read back from the picked
+//    row, (r, g, b) = -(row.y, row.z, row.w) / 2, exact.
+// 10. Slot bits in the key, by groups of 16 rows. In a group, unrolled, a
+//    row's position j is a constant: it rides in the low 4 bits of 16 *
+//    pen + slack through the funnel shift's other word (j << 23, as in
+//    point 4), and the group's minimum is a plain unsigned min, two keys a
+//    three-input min. Once a group, its minimum replaces the running best
+//    if it is below the best with the position bits cleared: a strict `<`
+//    on 16 * pen + slack, so that a tie keeps the earlier group, which is
+//    the lower slot (a compare of whole keys would let a later group's
+//    lower position win the tie). The pick is position 16 * group + (best
+//    & 15). The slot no longer rides beside every key (3 issue slots a
+//    triple before: a compare and two selects).
 // 11. No count walk. A pixel's 64 picks are stored as keys
 //    ((luma * 64 + step) << 8) | slot; luma <= 255,000, so luma * 64 + 63
 //    < 2^24 and a key < 2^32. The 24-bit prefixes are distinct (the step),
 //    and the pick of rank mapv is found as the TPU kernel finds it: the
 //    greatest prefix v with #{keys < v << 8} <= mapv, built bit by bit
 //    (24 x 64 compares on the 64 keys in registers; S x 64 for a walk).
-// 12. Shared memory, dynamic: 16 KB of keys and 24 S bytes of rows a warp,
-//    four warps (one tile each) a block: 68,704 B at S = 33, 90,112 B at
-//    S = 256, above the 48 KB static limit, so the launch opts in
-//    (cudaFuncAttributeMaxDynamicSharedMemorySize). At S = 256 two blocks
-//    fit an SM (8 warps); the scan reads its rows from shared memory (a
-//    broadcast: every lane reads the same row). A kernel that is right
-//    first: its speed is later work (PERF.md).
+// 12. Shared memory, dynamic: 16 KB of keys a warp, and per scan row its
+//    float4, its luma (read four to an LDS.128) and its slot byte, for 16 *
+//    ceil(S / 16) rows, four warps (one tile each) a block: 69,824 B at
+//    S = 33, 87,296 B at S = 256, above the 48 KB static limit, so the
+//    launch opts in (cudaFuncAttributeMaxDynamicSharedMemorySize). At
+//    S = 256 two blocks fit an SM (8 warps). The rows are read from shared
+//    memory (a broadcast: every lane reads the same row).
+// Issue slots a triple in the wide scan: the narrow scan's 10.5, plus its
+// row loads (16 LDS.128 of rows and 4 of lumas a group, for the thread's
+// two pixels: 0.625) and the group merge (LOP, compare, two selects a
+// pixel and group: 0.25): about 11.4, against about 14.5 before points 9
+// and 10.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -330,10 +347,21 @@ tk_select_kernel(const uint8_t* __restrict__ pix,      // [T, 64, 3]
 }
 
 constexpr int kWideWarps = 4;  // tiles per block of the wide kernel
+constexpr int kGroup = 16;  // rows of a scan group: the slot bits of a key
 constexpr int kKeyBytes = kSteps * 64 * 4;  // a warp's keys: [step][pixel]
 
+// the wide kernel's scan rows at palette size S (a whole number of groups)
+// and one warp's shared memory: its keys, then per row a float4, a luma
+// and a slot byte, then the 16 words j << 23 (points 10 and 12)
+__host__ __device__ constexpr int wide_rows(int S) {
+  return (S + kGroup - 1) / kGroup * kGroup;
+}
+__host__ __device__ constexpr int wide_warp_bytes(int S) {
+  return kKeyBytes + 21 * wide_rows(S) + 4 * kGroup;
+}
+
 // S = 33..256 (points 9-12 of the header); dynamic shared memory of
-// kWideWarps * (kKeyBytes + 24 * S) bytes
+// kWideWarps * wide_warp_bytes(S) bytes
 __global__ void __launch_bounds__(32 * kWideWarps)
 tk_select_wide_kernel(const uint8_t* __restrict__ pix,      // [T, 64, 3]
                       const uint8_t* __restrict__ mirror,   // [T] h | v << 1
@@ -346,37 +374,51 @@ tk_select_wide_kernel(const uint8_t* __restrict__ pix,      // [T, 64, 3]
   const int warp = threadIdx.x >> 5;
   const int tile = blockIdx.x * kWideWarps + warp;
   if (tile >= T) return;  // whole warps leave; the rest only sync as warps
-  char* base = reinterpret_cast<char*>(wide_shared);
-  uint32_t* keys = reinterpret_cast<uint32_t*>(base) + warp * (kKeyBytes / 4);
-  base += kWideWarps * kKeyBytes;
-  float4* row = reinterpret_cast<float4*>(base) + warp * S;
-  float* lum = reinterpret_cast<float*>(base + kWideWarps * 16 * S) + warp * S;
-  int* row_slot = reinterpret_cast<int*>(base + kWideWarps * 20 * S) + warp * S;
+  const int R = wide_rows(S);
+  char* base = reinterpret_cast<char*>(wide_shared) + warp * wide_warp_bytes(S);
+  uint32_t* keys = reinterpret_cast<uint32_t*>(base);
+  float4* row = reinterpret_cast<float4*>(base + kKeyBytes);
+  float* lum = reinterpret_cast<float*>(base + kKeyBytes + 16 * R);
+  uint32_t* slot_word = reinterpret_cast<uint32_t*>(base + kKeyBytes + 20 * R);
+  uint8_t* slot_of = reinterpret_cast<uint8_t*>(base + kKeyBytes + 20 * R + 4 * kGroup);
 
-  // --- the tile's palette: the first valid slot, then the scan rows -------
+  // --- the tile's palette: its valid rows compacted in slot order ---------
   const int* pal = table + (size_t)pal_idx[tile] * S * 8;
-  int first = -1;  // the same in every lane: the ballots are the warp's
-  for (int s0 = 0; s0 < S && first < 0; s0 += 32) {
-    const int s = s0 + lane;
-    const unsigned vmask = __ballot_sync(0xFFFFFFFFu, s < S && pal[s * 8 + 4] > 0);
-    if (vmask) first = s0 + __ffs(vmask) - 1;
-  }
-  for (int s = lane; s < S; s += 32) {
-    const int src = pal[s * 8 + 4] > 0 ? s : first;
-    int r = 0, g = 0, b = 0, l = 0, slot = 0;
+  // position pos of the scan holds slot src's color (src < 0: black, slot 0)
+  auto put = [&](int pos, int src) {
+    int r = 0, g = 0, b = 0, l = 0;
     if (src >= 0) {
       r = pal[src * 8 + 0];
       g = pal[src * 8 + 1];
       b = pal[src * 8 + 2];
       l = pal[src * 8 + 3];
-      slot = src;
     }
-    row[s] = make_float4((float)(r * r + g * g + b * b) + 1.5f * kTwo23,
-                         (float)(-2 * r), (float)(-2 * g), (float)(-2 * b));
-    lum[s] = (float)l;
-    row_slot[s] = slot;
+    row[pos] = make_float4((float)(r * r + g * g + b * b) + 1.5f * kTwo23,
+                           (float)(-2 * r), (float)(-2 * g), (float)(-2 * b));
+    lum[pos] = (float)l;
+    slot_of[pos] = (uint8_t)max(src, 0);
+  };
+  int nv = 0, last = -1;  // the same in every lane: the ballots are the warp's
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + lane;
+    const bool valid = s < S && pal[s * 8 + 4] > 0;
+    const unsigned vmask = __ballot_sync(0xFFFFFFFFu, valid);
+    if (valid) put(nv + __popc(vmask & ((1u << lane) - 1u)), s);
+    if (vmask) last = s0 + 31 - __clz((int)vmask);
+    nv += __popc(vmask);
   }
+  // pad to whole groups with copies of the last valid row (they lose its
+  // ties); no valid color: one group of black rows of slot 0
+  const int rows = nv ? (nv + kGroup - 1) / kGroup * kGroup : kGroup;
+  for (int pos = nv + lane; pos < rows; pos += 32) put(pos, last);
+  if (lane < kGroup) slot_word[lane] = (uint32_t)lane << 23;
   __syncwarp();
+  // a group's position j rides into the key's low bits through the funnel
+  // shift's other word; read from shared memory, so that the compiler
+  // cannot fold the constant into a third IMAD (point 10)
+  uint32_t word[kGroup];
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) word[j] = slot_word[j];
 
   // --- 64 steps for the thread's two pixels ------------------------------
   float sr[2], sg[2], sb[2], er[2], eg[2], eb[2];  // integers, exact in fp32
@@ -388,10 +430,11 @@ tk_select_wide_kernel(const uint8_t* __restrict__ pix,      // [T, 64, 3]
     sb[i] = (float)pix[p * 3 + 2];
     er[i] = eg[i] = eb[i] = 0.0f;
   }
+  const int groups = rows / kGroup;
 #pragma unroll 1
   for (int c = 0; c < kSteps; ++c) {
     uint32_t bias[2], best[2];
-    int pick[2];
+    int best_group[2];
     float tr[2], tg[2], tb[2], lum_t[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -401,33 +444,55 @@ tk_select_wide_kernel(const uint8_t* __restrict__ pix,      // [T, 64, 3]
       lum_t[i] = fmaf(tb[i], 114.0f, fmaf(tg[i], 587.0f, tr[i] * 299.0f));
       const float t2 = fmaf(tb[i], tb[i], fmaf(tg[i], tg[i], tr[i] * tr[i]));
       bias[i] = ((uint32_t)(208 * __float2int_rz(t2)) - 0x24000000u + 511u) >> 9;
-      best[i] = 0xFFFFFFFFu;  // above every key (point 4): row 0 always wins
-      pick[i] = 0;
+      best[i] = 0xFFFFFFFFu;  // above every key (point 4): group 0 always wins
+      best_group[i] = 0;
     }
-#pragma unroll 4
-    for (int s = 0; s < S; ++s) {
-      const float4 rw = row[s];
-      const float l = lum[s];
-      const int slot = row_slot[s];
+#pragma unroll 1
+    for (int g = 0; g < groups; ++g) {
+      const float4* rg = row + g * kGroup;
+      const float4* lg = reinterpret_cast<const float4*>(lum) + g * (kGroup / 4);
+      uint32_t gmin[2] = {0xFFFFFFFFu, 0xFFFFFFFFu};
+#pragma unroll
+      for (int j4 = 0; j4 < kGroup / 4; ++j4) {
+        const float4 l4 = lg[j4];  // four rows' lumas in one load
+        const float lj[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+        for (int k = 0; k < 4; k += 2) {
+          uint32_t key[2][2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int j = 4 * j4 + k + h;
+            const float4 rw = rg[j];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const uint32_t q = luma_quotient(lum_t[i], lj[k + h]);
+              const uint32_t dot = (uint32_t)__float_as_int(
+                  fmaf(tb[i], rw.w, fmaf(tg[i], rw.z, fmaf(tr[i], rw.y, rw.x))));
+              key[i][h] = dot * 208u + __funnelshift_l(word[j], q * q + bias[i], 9);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) gmin[i] = min(gmin[i], min(key[i][0], key[i][1]));
+        }
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const uint32_t q = luma_quotient(lum_t[i], l);
-        const uint32_t dot = (uint32_t)__float_as_int(
-            fmaf(tb[i], rw.w, fmaf(tg[i], rw.z, fmaf(tr[i], rw.y, rw.x))));
-        const uint32_t key = dot * 208u + ((q * q + bias[i]) << 9);
-        const bool lt = key < best[i];
-        best[i] = lt ? key : best[i];
-        pick[i] = lt ? slot : pick[i];
+        // 16 * pen + slack against the best's, position bits cleared: a
+        // tie keeps the earlier group (point 10)
+        const bool lt = gmin[i] < (best[i] & ~(uint32_t)(kGroup - 1));
+        best[i] = lt ? gmin[i] : best[i];
+        best_group[i] = lt ? g : best_group[i];
       }
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float4 fed = row[pick[i]];  // (.., -2 r, -2 g, -2 b) of the pick
+      const int pos = best_group[i] * kGroup + (int)(best[i] & (kGroup - 1));
+      const float4 fed = row[pos];  // (.., -2 r, -2 g, -2 b) of the pick
       er[i] += fmaf(0.5f, fed.y, sr[i]);
       eg[i] += fmaf(0.5f, fed.z, sg[i]);
       eb[i] += fmaf(0.5f, fed.w, sb[i]);
       keys[c * 64 + lane + 32 * i] =
-          ((uint32_t)((int)lum[pick[i]] * kSteps + c) << 8) | (uint32_t)pick[i];
+          ((uint32_t)((int)lum[pos] * kSteps + c) << 8) | (uint32_t)slot_of[pos];
     }
   }
   __syncwarp();
@@ -469,7 +534,7 @@ extern "C" int tk_select_launch(const void* pix, const void* mirror,
   if (T <= 0) return 0;
   if (S <= 0 || S > 256) return (int)cudaErrorInvalidValue;
   if (S > 32) {
-    const int smem = kWideWarps * (kKeyBytes + 24 * S);
+    const int smem = kWideWarps * wide_warp_bytes(S);
     const cudaError_t attr = cudaFuncSetAttribute(
         tk_select_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return (int)attr;

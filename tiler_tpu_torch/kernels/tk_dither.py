@@ -282,3 +282,64 @@ def adversarial_case(S: int, seed: int = 0, reps: int = 2):
     pix = np.stack(tiles).astype(np.uint8)
     mirror = rng.integers(0, 4, len(pix)).astype(np.uint8)
     return pix, mirror, np.asarray(pidx, np.int32), pal, valid
+
+
+def slot_edge_case(S: int, seed: int = 0, reps: int = 1):
+    """Palettes that provoke the wide kernel's scan over valid rows only
+    (csrc/tk_dither.cu, header points 9 and 10), as numpy arrays shaped as
+    :func:`adversarial_case`'s; T is odd.
+
+    Palettes: invalid slots below the first valid one that hold the valid
+    slots' colors (a tie an invalid slot must not win); one color in every
+    slot, valid from the middle on (the first valid slot wins); no valid
+    color (slot 0); a single valid slot, the last (255 at S = 256); valid
+    counts 16k + 1 and 16k + 15 that leave a group partly padded, the last
+    valid color repeated in an earlier valid slot (the copies that pad the
+    group must lose its ties); random with about half the slots valid, the
+    invalid ones holding valid colors; every slot valid, slots 16..31
+    repeating slots 15..0 (ties across a group boundary where the later
+    row has the lower place in its group). Each palette against tiles of 0, of
+    255, random, and of the palette's own colors drawn from every slot
+    (exact matches, pen 0, for valid and invalid slots alike)."""
+    rng = np.random.default_rng(seed)
+    rand = lambda: rng.integers(0, 256, (S, 3))  # noqa: E731
+    pals, valid = [], []
+
+    def add(pal, ok):
+        pals.append(pal)
+        valid.append(ok)
+
+    k = S // 3
+    pal = rand()
+    pal[:k] = pal[k:2 * k]
+    add(pal, np.arange(S) >= k)
+    add(np.tile(rng.integers(0, 256, (1, 3)), (S, 1)), np.arange(S) >= S // 2)
+    add(rand(), np.zeros(S, bool))
+    add(rand(), np.arange(S) == S - 1)
+    for n in (16 * ((S - 1) // 16) + 1, 16 * ((S - 16) // 16) + 15):
+        ok = np.zeros(S, bool)
+        ok[rng.choice(S, n, replace=False)] = True
+        slots = np.flatnonzero(ok)
+        pal = rand()
+        pal[slots[len(slots) // 2]] = pal[slots[-1]]
+        add(pal, ok)
+    ok = rng.random(S) < 0.5
+    ok[rng.integers(S)] = True
+    pal = rand()
+    pal[~ok] = pal[rng.choice(np.flatnonzero(ok), int((~ok).sum()))]
+    add(pal, ok)
+    pal = rand()
+    pal[16:32] = pal[15::-1]
+    add(pal, np.ones(S, bool))
+    tiles, pidx = [], []
+    for _ in range(reps):
+        for p, pal in enumerate(pals):
+            tiles += [np.zeros((64, 3), int), np.full((64, 3), 255),
+                      rng.integers(0, 256, (64, 3)), pal[rng.integers(0, S, 64)]]
+            pidx += [p] * 4
+    tiles.append(pals[0][rng.integers(0, S, 64)])
+    pidx.append(0)
+    pix = np.stack(tiles).astype(np.uint8)
+    mirror = rng.integers(0, 4, len(pix)).astype(np.uint8)
+    return (pix, mirror, np.asarray(pidx, np.int32), np.stack(pals).astype(np.int32),
+            np.stack(valid))

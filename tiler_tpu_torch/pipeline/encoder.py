@@ -51,14 +51,25 @@ _CHECKPOINT_CLASSES = {
 }
 
 
+def _stage1_dims_ok(dims: int) -> bool:
+    try:
+        reconstruct_mod._lowfreq_vu(dims)
+    except ValueError:
+        return False
+    return True
+
+
 def check_settings(s: EncoderSettings):
     """Raise ValueError naming the first setting the port does not run."""
     rules = (
         ("knn_backend", s.knn_backend not in ("pallas", "pallas_v1", "xla"),
          "only the 'pallas', 'pallas_v1' and 'xla' top-k backends are "
          "ported (the IVF search is not)"),
-        ("epu_two_stage", s.epu_two_stage, "the two-stage EPU is not ported"),
-        ("epu_fused_fp", s.epu_fused_fp, "the fused EPU table is not ported"),
+        ("epu_stage1_dims", s.epu_two_stage and not _stage1_dims_ok(s.epu_stage1_dims),
+         "the two-stage EPU ranks on the low-frequency r x r block of each "
+         "channel's 8 x 8 DCT, so its dims are 3*r^2 with 1 <= r <= 8"),
+        ("epu_stage1_m", s.epu_two_stage and s.epu_stage1_m < 1,
+         "the two-stage EPU re-ranks at least one pair a cell exactly"),
         ("motion_field", s.motion_field not in ("passes", "im2row"),
          "only the 'passes' and 'im2row' window fields exist"),
         ("motion_rank_dims", s.motion_rank_dims != 192,

@@ -27,6 +27,13 @@ host and go up a row of cells, or a keyframe, at a time.
 EPU tie-break: among minimal-error pairs, the smallest packed
 ``tile * P + palette`` id, which is the reference's strict-< scan over
 candidates sorted tile-major, palette-minor.
+
+The EPU's tables, three ways (``tiler_tpu/pipeline/reconstruct.py:209-368``):
+the default bf16 G and f32 Q rows; ``epu_two_stage``, int8 low-frequency
+G and int16 Q that rank every pair, then the exact errors of each cell's
+best ``epu_stage1_m`` pairs; ``epu_fused_fp``, one byte row of the
+default's G and Q a tile, gathered once, ranking bit for bit as the
+default.
 """
 from __future__ import annotations
 
@@ -49,9 +56,10 @@ TOL = 192.0  # cTileDCTSize comparison tolerance
 CELL_ROW = 8192  # cells per phase-A row
 TOPK_BUDGET = 4e9  # bytes of the [cells, T] f32 ranking matrix per pass
 INT32_MAX = 2**31 - 1
-# elements of _tile_quad's [tiles, S, S] products a chunk of tiles (1 GiB of
-# f32): 4,096 tiles at S = 256
+# elements of the quadratic tables' [tiles, S, S] products a chunk of tiles
+# (1 GiB of f32): 4,096 tiles at S = 256
 QUAD_CHUNK = 1 << 28
+IDCT_CHUNK = 16384  # tiles a chunk of _indicator_dcts' one-hot products
 
 
 def _render_corpus(palettes_rgb, pal_initial, pal_pixels):
@@ -59,7 +67,7 @@ def _render_corpus(palettes_rgb, pal_initial, pal_pixels):
     return palettes_rgb[pal_initial.long()[:, None, None], pal_pixels.long()]
 
 
-def _indicator_dcts(pal_pixels, S: int, chunk: int = 16384):
+def _indicator_dcts(pal_pixels, S: int, chunk: int = IDCT_CHUNK):
     """G[t, vu, s] = DCT2D(indicator(pal_pixels == s)): the linear map
     from palette YUV colors to the tile's DCT features. One [B*S, 64] x
     [64, 64] matmul of the bf16 one-hot map (exact products, f32 sums).
@@ -78,29 +86,129 @@ def _indicator_dcts(pal_pixels, S: int, chunk: int = 16384):
     return torch.cat(outs)
 
 
-def _tile_quad(G, S: int):
-    """Per-tile quadratic form, packed upper triangle:
-    Q[t, (c, s<=s')] = sum_v wf[v,c]^2 G[t,v,s] G[t,v,s'] with the
-    off-diagonal entries doubled, so |rendered feature|^2 of (tile t,
-    palette j) is Q[t] . R[j]. [T, 3*S*(S+1)/2] float32, 394,752 bytes a
-    tile at S = 256; built in chunks of tiles whose [tiles, S, S] products
-    hold at most ``QUAD_CHUNK`` elements (the whole corpus at S = 16)."""
-    dev = G.device
+def _quad_rows(Gf, wf2, tri_i, tri_j, dbl):
+    """Packed upper-triangle quadratic rows of a chunk of tiles:
+    [tiles, 3 * ntri] float32 from Gf [tiles, V, S] float32 and the
+    squared weights wf2 [V, 3] of its V coefficients."""
+    outs = [torch.bmm((Gf * wf2[:, c][None, :, None]).transpose(1, 2), Gf)[:, tri_i, tri_j] * dbl
+            for c in range(3)]
+    return torch.stack(outs, dim=1).reshape(Gf.shape[0], -1)
+
+
+def _triangle(S: int, dev):
+    """Upper-triangle indexes of an S x S matrix and the doubling of its
+    off-diagonal entries."""
+    tri_i, tri_j = (torch.as_tensor(v, device=dev) for v in np.triu_indices(S))
+    return tri_i, tri_j, (tri_i != tri_j).float() + 1.0
+
+
+def _quad_chunk(S: int) -> int:
+    """Tiles a chunk of the quadratic-table builds: their [tiles, S, S]
+    products hold at most QUAD_CHUNK elements."""
+    return max(1, QUAD_CHUNK // (S * S))
+
+
+def _epu_tables(pal_pixels, S: int, fused: bool = False):
+    """The EPU's rank tables of the corpus: G = _indicator_dcts in bf16
+    [T, 64, S] (ranking only), and the per-tile quadratic form, packed
+    upper triangle, Q[t, (c, s<=s')] = sum_v wf[v,c]^2 G[t,v,s] G[t,v,s']
+    with the off-diagonal entries doubled, so that |rendered feature|^2 of
+    (tile t, palette j) is Q[t] . R[j]: [T, 3*S*(S+1)/2] float32, 394,752
+    bytes a tile at S = 256. Both are built by chunks of tiles whose
+    [tiles, S, S] products hold at most ``QUAD_CHUNK`` elements (16,384
+    tiles at most), so that G in f32 never stands whole.
+
+    With ``fused`` (``epu_fused_fp``) both go into one uint8 table, G's
+    bf16 bytes followed by Q's f32 bytes a row, [T, 64 * S * 2 + 4 *
+    ntri3], written through dtype views chunk by chunk as the separate
+    tables are (so no whole G or Q stands beside it): returns (table,
+    None), whose views (:func:`_fused_views`) are the separate tables bit
+    for bit. Otherwise (G, Q)."""
+    dev = pal_pixels.device
+    T = pal_pixels.shape[0]
     w = torch.as_tensor(DCT_WEIGHTS, dtype=torch.float32, device=dev)
     wf2 = (w * w).permute(1, 2, 0).reshape(64, 3)
-    tri_i, tri_j = (torch.as_tensor(v, device=dev) for v in np.triu_indices(S))
-    dbl = (tri_i != tri_j).float() + 1.0
-    T = G.shape[0]
-    chunk = max(1, QUAD_CHUNK // (S * S))
-    Q = torch.empty(T, 3 * len(tri_i), dtype=torch.float32, device=dev)
+    tri = _triangle(S, dev)
+    ntri3 = 3 * len(tri[0])
+    if fused:
+        table = torch.empty(T, 64 * S * 2 + 4 * ntri3, dtype=torch.uint8, device=dev)
+        G, Q = _fused_views(table, S)
+    else:
+        G = torch.empty(T, 64 * S, dtype=torch.bfloat16, device=dev)
+        Q = torch.empty(T, ntri3, dtype=torch.float32, device=dev)
+    chunk = min(IDCT_CHUNK, _quad_chunk(S))
     for i in range(0, T, chunk):
-        Gf = G[i:i + chunk].float()
-        outs = [
-            torch.bmm((Gf * wf2[:, c][None, :, None]).transpose(1, 2), Gf)[:, tri_i, tri_j] * dbl
-            for c in range(3)
-        ]
-        Q[i:i + chunk] = torch.stack(outs, dim=1).reshape(Gf.shape[0], -1)
-    return Q
+        g = _indicator_dcts(pal_pixels[i:i + chunk], S).to(torch.bfloat16)
+        G[i:i + chunk] = g.reshape(g.shape[0], -1)
+        Q[i:i + chunk] = _quad_rows(g.float(), wf2, *tri)
+    return (table, None) if fused else (G.reshape(T, 64, S), Q)
+
+
+def _fused_views(rows, S: int):
+    """The bf16 G [..., 64 * S] and f32 Q [..., 3 * S(S+1)/2] views of
+    fused table rows (bytes [..., 64 * S * 2 + 4 * ntri3], in any dtype)."""
+    gb = 64 * S * 2
+    rows = rows.view(torch.uint8)
+    return rows[..., :gb].view(torch.bfloat16), rows[..., gb:].view(torch.float32)
+
+
+def _div(num: float, t):
+    """num / t correctly rounded, as jnp's division (``num / t`` on a
+    tensor multiplies by t's reciprocal, which is not)."""
+    return torch.full_like(t, num) / t
+
+
+def _lowfreq_vu(dims: int) -> np.ndarray:
+    """(v, u) raster indexes of the low-frequency r x r block of the 8 x 8
+    DCT, dims = 3 * r^2 (epu_stage1_dims)."""
+    r = int(round((dims / 3) ** 0.5))
+    if 3 * r * r != dims or not 1 <= r <= TILE_W:
+        raise ValueError(f"epu_stage1_dims must be 3*r^2 with 1 <= r <= 8, got {dims}")
+    v, u = np.mgrid[0:r, 0:r]
+    return (v * 8 + u).reshape(-1)
+
+
+def _build_two_stage_tables(pal_pixels, S: int, dims: int):
+    """Stage-1 rank tables of the two-stage EPU (``epu_two_stage``), the
+    JAX package's ``_build_two_stage_tables`` on G = _indicator_dcts:
+
+    - G8lf [T, L, S] int8: G's low-frequency coefficients (L = dims / 3)
+      with a scale per coefficient; g_inv [L] dequantizes them (folded
+      into the cell features, so int8 -> bf16 is exact);
+    - Q16 [T, 3 * S(S+1)/2] int16 with a scale per column, q_inv: the
+      quadratic table of the dequantized low-frequency G (folded into the
+      palette outer products).
+
+    Built by chunks of tiles: G in f32 and Q in f32 never stand whole
+    (14.3 GB of Q at T = 36,307, S = 256). The column scales need the
+    whole f32 Q, so it is computed twice, once for its column maxima and
+    once to quantize."""
+    dev = pal_pixels.device
+    T = pal_pixels.shape[0]
+    lf = torch.as_tensor(_lowfreq_vu(dims), device=dev)
+    Glf = torch.cat([_indicator_dcts(pal_pixels[i:i + IDCT_CHUNK], S)[:, lf, :]
+                     for i in range(0, T, IDCT_CHUNK)])  # [T, L, S] f32
+    vmax = Glf.abs().amax(dim=(0, 2)).clamp_min(1e-6)
+    gsc = _div(127.0, vmax)
+    G8lf = torch.round(Glf * gsc[None, :, None]).to(torch.int8)
+    del Glf
+    g_inv = _div(1.0, gsc)
+    w = np.asarray(DCT_WEIGHTS, np.float64).transpose(1, 2, 0).reshape(64, 3)
+    wlf2 = torch.as_tensor((w * w)[lf.cpu().numpy()], dtype=torch.float32, device=dev)
+    tri = _triangle(S, dev)
+    chunk = _quad_chunk(S)
+
+    def qlf(i):
+        return _quad_rows(G8lf[i:i + chunk].float() * g_inv[None, :, None], wlf2, *tri)
+
+    cmax = torch.zeros(3 * len(tri[0]), device=dev)
+    for i in range(0, T, chunk):
+        cmax = torch.maximum(cmax, qlf(i).abs().amax(dim=0))
+    qsc = _div(32767.0, cmax.clamp_min(1e-9))
+    Q16 = torch.empty(T, len(cmax), dtype=torch.int16, device=dev)
+    for i in range(0, T, chunk):
+        Q16[i:i + chunk] = torch.round(qlf(i) * qsc[None, :]).to(torch.int16)
+    return G8lf, g_inv, Q16, _div(1.0, qsc)
 
 
 def _topk_oneshot(feats, ds, k: int):
@@ -128,42 +236,120 @@ def _topk_candidates(feats, ds, k: int):
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
+def _rall(pal_yuv, S: int):
+    """Per-palette outer products at the triangle's indexes: [P, 3 * ntri],
+    R[j, (c, s<=s')] = Py[j, s, c] Py[j, s', c]."""
+    tri_i, tri_j, _ = _triangle(S, pal_yuv.device)
+    Pc = pal_yuv.transpose(1, 2)  # [P, 3, S]
+    return (Pc[..., tri_i] * Pc[..., tri_j]).reshape(pal_yuv.shape[0], -1)
+
+
+def _ftw(f, wf):
+    """Weighted cell features [b, 64, 3] from feats [b, 192]."""
+    return f.reshape(f.shape[0], 3, 64).transpose(1, 2) * wf
+
+
+def _pair_err(Gi, Qi, ftw, Py, Rj):
+    """Norm-expansion error of every (candidate tile, candidate palette)
+    pair of a chunk of cells, [b, kk * kp]: Q_i . R_j - 2 <C_i, Py_j> with
+    C[b, k, s, c] = sum_v Gi[b, k, v, s] ftw[b, v, c]. Gi [b, kk, V, S]
+    float32, Qi [b, kk, X], ftw [b, V, 3], Py [b, kp, S, 3], Rj [b, kp, X]."""
+    b, kk, V, S = Gi.shape
+    C = torch.bmm(Gi.transpose(2, 3).reshape(b, kk * S, V), ftw).reshape(b, kk, S * 3)
+    err = torch.bmm(Qi, Rj.transpose(1, 2)) - 2.0 * torch.bmm(C, Py.reshape(b, -1, S * 3)
+                                                               .transpose(1, 2))
+    return err.reshape(b, -1)
+
+
+def _tie_break(err, tile, pal, P: int):
+    """Among a cell's minimal-error pairs the smallest packed
+    tile * P + pal (the reference's strict-< scan over candidates sorted
+    tile-major, palette-minor). err, tile, pal [b, n]. Returns (tile,
+    pal, min err) [b]."""
+    combo = tile * P + pal
+    m = err.min(dim=1, keepdim=True).values
+    best = torch.where(err <= m, combo, INT32_MAX).min(dim=1).values
+    return best // P, best % P, m[:, 0]
+
+
 def _epu_rank_all(feats, cand_idx, cand_pal, G, Q, pal_yuv, S: int, cell_chunk: int):
     """Cartesian re-rank of (candidate tile, candidate palette) pairs.
 
     Norm expansion: argmin over (i, j) of |rf|^2 - 2 <rf, ft> with
     rf = (G_i @ Py_j) * wf; |rf|^2 = Q_i . R_j. Returns (tile [B],
-    pal [B]) int64, tie-break by the smallest packed tile * P + pal."""
+    pal [B]) int64, tie-break by the smallest packed tile * P + pal.
+    With ``Q`` None, ``G`` is the fused table (``epu_fused_fp``): one
+    gather of its byte rows, split by dtype views into the same bf16 G
+    and f32 Q rows, so the ranking is the default's bit for bit."""
     dev = feats.device
     B, kk = cand_idx.shape
     kp = cand_pal.shape[1]
     P = pal_yuv.shape[0]
     w = torch.as_tensor(DCT_WEIGHTS, dtype=torch.float32, device=dev)
     wf = w.permute(1, 2, 0).reshape(64, 3)
-    tri_i, tri_j = (torch.as_tensor(v, device=dev) for v in np.triu_indices(S))
-    Pc = pal_yuv.transpose(1, 2)  # [P, 3, S]
-    Rall = (Pc[..., tri_i] * Pc[..., tri_j]).reshape(P, -1)
+    Rall = _rall(pal_yuv, S)
     tiles, pals = [], []
     for i in range(0, B, cell_chunk):
         f = feats[i:i + cell_chunk]
         ci = cand_idx[i:i + cell_chunk].long()
         cp = cand_pal[i:i + cell_chunk].long()
         b = f.shape[0]
-        Gi = G[ci].float()  # [b, kk, 64, S] (bf16 values)
-        Qi = Q[ci]  # [b, kk, 3*ntri]
-        ftw = (f.reshape(b, 3, 64).transpose(1, 2) * wf).to(torch.bfloat16).float()
-        # C[b, k, s, c] = sum_v Gi[b, k, v, s] ftw[b, v, c]
-        C = torch.bmm(Gi.transpose(2, 3).reshape(b, kk * S, 64), ftw).reshape(b, kk, S * 3)
-        Py = pal_yuv[cp].reshape(b, kp, S * 3)
-        Rj = Rall[cp]  # [b, kp, 3*ntri]
-        err = torch.bmm(Qi, Rj.transpose(1, 2)) - 2.0 * torch.bmm(C, Py.transpose(1, 2))
-        err = err.reshape(b, kk * kp)
-        combo = (ci[:, :, None] * P + cp[:, None, :]).reshape(b, kk * kp)
-        m = err.min(dim=1, keepdim=True).values
-        best = torch.where(err <= m, combo, INT32_MAX).min(dim=1).values
-        tiles.append(best // P)
-        pals.append(best % P)
+        if Q is None:
+            # one gather of whole rows, as 4-byte words (a row is 4 * ntri3
+            # + 128 * S bytes; PERF.md section 6); the Q view goes into the
+            # product as it is, row stride and all
+            Gi, Qi = _fused_views(G.view(torch.int32)[ci], S)
+        else:
+            Gi, Qi = G[ci], Q[ci]  # [b, kk, 64, S] bf16 (ranking only); [b, kk, 3*ntri]
+        Gi = Gi.reshape(b, kk, 64, S).float()
+        ftw = _ftw(f, wf).to(torch.bfloat16).float()
+        err = _pair_err(Gi, Qi, ftw, pal_yuv[cp], Rall[cp])
+        t, p, _ = _tie_break(err, ci[:, :, None].expand(b, kk, kp).reshape(b, -1),
+                             cp[:, None, :].expand(b, kk, kp).reshape(b, -1), P)
+        tiles.append(t)
+        pals.append(p)
     return torch.cat(tiles), torch.cat(pals)
+
+
+def _epu_rank_two_stage(feats, cand_idx, cand_pal, G8lf, g_inv, Q16, q_inv, pal_yuv, pp,
+                        palettes, S: int, dims: int, M: int, cell_chunk: int,
+                        int16: bool = False):
+    """Two-stage cartesian re-rank (``epu_two_stage``). Stage 1 is
+    _epu_rank_all's norm expansion on the int8 low-frequency G and the
+    int16 Q (_build_two_stage_tables), its scales folded into the cell
+    features and the palette outer products; stage 2 takes each cell's M
+    pairs of least stage-1 error (ties to the lower pair index, as
+    ``lax.top_k``) and ranks them by their exact errors, tie-break by the
+    smallest packed tile * P + pal. Returns (tile [B], pal [B], exact
+    err [B]): the error is already exact."""
+    dev = feats.device
+    B, kk = cand_idx.shape
+    kp = cand_pal.shape[1]
+    P = pal_yuv.shape[0]
+    M = min(M, kk * kp)
+    lf = torch.as_tensor(_lowfreq_vu(dims), device=dev)
+    w = torch.as_tensor(DCT_WEIGHTS, dtype=torch.float32, device=dev)
+    wf = w.permute(1, 2, 0).reshape(64, 3)
+    Rall = _rall(pal_yuv, S) * q_inv[None, :]  # the int16 Q's dequantization
+    tiles, pals, errs = [], [], []
+    for i in range(0, B, cell_chunk):
+        f = feats[i:i + cell_chunk]
+        ci = cand_idx[i:i + cell_chunk].long()
+        cp = cand_pal[i:i + cell_chunk].long()
+        b = f.shape[0]
+        ftw = _ftw(f, wf)[:, lf, :] * g_inv[None, :, None]
+        err = _pair_err(G8lf[ci].float(), Q16[ci].float(), ftw.to(torch.bfloat16).float(),
+                        pal_yuv[cp], Rall[cp])
+        top = torch.sort(err, dim=1, stable=True).indices[:, :M]  # [b, M] pair slots
+        mt = ci.gather(1, top // kp)
+        mp = cp.gather(1, top % kp)
+        ex = _exact_choice_err(f.repeat_interleave(M, dim=0), mt.reshape(-1), mp.reshape(-1),
+                               pp, palettes, int16).reshape(b, M)
+        t, p, e = _tie_break(ex, mt, mp, P)
+        tiles.append(t)
+        pals.append(p)
+        errs.append(e)
+    return torch.cat(tiles), torch.cat(pals), torch.cat(errs)
 
 
 def _features(tiles_rgb, int16: bool):
@@ -200,6 +386,10 @@ def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str):
         d = feats - ctx["ds"][t]
         return t, ctx["pal_initial"][t], (d * d).sum(dim=1)
     cand_pal = ctx["pal_initial"][idx[:, :pal_k]]
+    if "two_stage" in ctx:  # stage 2 gives the exact error of its pick
+        return _epu_rank_two_stage(feats, idx, cand_pal, *ctx["two_stage"], ctx["pal_yuv"],
+                                   ctx["pp"], ctx["palettes"], ctx["S"], *ctx["stage1"],
+                                   ctx["cell_chunk"], ctx["int16"])
     t, p = _epu_rank_all(feats, idx, cand_pal, ctx["G"], ctx["Q"], ctx["pal_yuv"],
                          ctx["S"], ctx["cell_chunk"])
     return t, p, _exact_choice_err(feats, t, p, ctx["pp"], ctx["palettes"], ctx["int16"])
@@ -232,7 +422,16 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
     kk = min(settings.epu_knn_k, T) if epu else 1
     pal_k = min(settings.epu_pal_k or kk, kk)
     ntri3 = 3 * (S * (S + 1) // 2)
-    per_cell = kk * (64 * S * 2 + ntri3 * 4) + pal_k * ntri3 * 4
+    # cell_chunk bounds a chunk's gathered rows (Gi, Qi, Rj)
+    if settings.epu_two_stage:
+        # the port holds an f32 copy beside each int8 low-frequency G and
+        # int16 Q gather (XLA fuses that conversion into the product), so
+        # an entry takes 1 + 4 and 2 + 4 bytes, not the JAX formula's 1
+        # and 2; and G has epu_stage1_dims / 3 rows, not 64
+        row = settings.epu_stage1_dims // 3 * S * (1 + 4) + ntri3 * (2 + 4)
+    else:
+        row = 64 * S * 2 + ntri3 * 4  # the JAX package's formula
+    per_cell = kk * row + pal_k * ntri3 * 4
     # the kernels need a card and a corpus much wider than kk buckets, so
     # that the bucket top-2s cover the top-kk (the JAX package's gate)
     kernel = ""
@@ -250,9 +449,13 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
         ctx["dsT"], ctx["d2p"] = knn_prep_v1(ds, Tp)
     elif kernel == "v2":
         ctx["dsTa"] = knn_prep2(ds, Tp)
-    if epu:
-        ctx["G"] = _indicator_dcts(pp, S).to(torch.bfloat16)
-        ctx["Q"] = _tile_quad(ctx["G"], S)
+    if epu and settings.epu_two_stage:  # it takes precedence, as in the JAX package
+        ctx["two_stage"] = _build_two_stage_tables(pp, S, settings.epu_stage1_dims)
+        ctx["stage1"] = (settings.epu_stage1_dims, settings.epu_stage1_m)
+    elif epu and settings.epu_fused_fp:
+        ctx["G"], ctx["Q"] = _epu_tables(pp, S, fused=True)
+    elif epu:
+        ctx["G"], ctx["Q"] = _epu_tables(pp, S)
 
     # cell compaction: cells that Reduce marked predicted with a perfect
     # phase-A motion PSNR (euclidean TOL -> 48.13 dB) get only the cheap
