@@ -24,7 +24,10 @@ Run from the repository root:  python3 chip_smoke.py
      and the library's SASS must hold tensor-core MMAs (HGMMA, read with
      cuobjdump where the toolkit has it);
    - blockify_field: the 720p, radius-32 window field (98 x 168 blocks of
-     64 x 192 bf16), bit-identical.
+     64 x K bf16), bit-identical at every depth the motion ranking reaches,
+     K = 3 r^2 = 192, 147, 108, 75, 48, 27, 12, 3, each timed beside its
+     plain version, permute+contiguous and its byte bound (the kernels
+     line: K = 192, and every depth under "shapes").
 4. Encodes a 1280x720x32 synthetic clip (utils/clips.synthetic_clip)
    through Encoder(settings, device="cuda").run_all on two paths, each
    with every kernel's launch count set to 0 just before and read just
@@ -110,6 +113,26 @@ Run from the repository root:  python3 chip_smoke.py
    valid (the encoder's palettes are nearly full) beside the bound over
    the colors the function needs; the kernels line gives the wide256
    figures and, under "shapes", each path's.
+10. The last motion and corpus-search settings, 1280x720x32, the launch
+   counts as in 8:
+   - ivf: knn_backend="ivf" (the corpus k-means into blocks, each row of
+     8,192 cells probing 8 blocks), one encode: T = 116,097 with the IVF
+     engaged, no top-k kernel launch, tk_select once; the share of probes
+     the capacity dropped under 1% and PSNR-HVS within 1.0 dB of the
+     default (tests/test_ivf.py's bound); prints the blocks, the share,
+     the stages beside the default's and the gaps to it;
+   - rank48: motion_rank_dims=48 with the passes field, one encode: B2
+     (as many times as the corpus and the cells it leaves need; the
+     motion that ranks on 48 dims moves both), tk_select once, no
+     blockify;
+   - rank27_im2row: motion_field="im2row", motion_rank_dims=27, one
+     encode: blockify_field 32 times, every one at K = 27; prints the
+     gaps to the default and to im2row_v1 (other encoders: no gate beyond
+     the decode's).
+   Then the small clip on the card and the CPU (point 6) under
+   knn_backend="ivf" with ivf_min_corpus=1, under motion_rank_dims=48
+   with phase_b_motion="research", and under motion_field="im2row" with
+   motion_rank_dims=12.
 
 Prints per-stage times, then a JSON line of the kernels, the card line,
 and last {"ok": true, "device": {...}}. Exits nonzero on any failure.
@@ -158,9 +181,17 @@ EXPECT_LAUNCHES = {"default": {"tk_select": 1, "knn_bucket_top2": 57},
                    "wide256_two_stage": {"tk_select": 0, "tk_select_wide": 1,
                                          "knn_bucket_top2": 0},
                    "wide256_fused": {"tk_select": 0, "tk_select_wide": 1, "knn_bucket_top2": 0},
-                   "fused_fp": {"tk_select": 1, "tk_select_wide": 0, "knn_bucket_top2": 57}}
+                   "fused_fp": {"tk_select": 1, "tk_select_wide": 0, "knn_bucket_top2": 57},
+                   "ivf": {"tk_select": 1, "knn_bucket_top2": 0, "knn_bucket_top2_v1": 0},
+                   # the rank paths' motion moves the corpus and the cells
+                   # that skip the top-k (the reference's -0.7 dB at 48), so
+                   # B2's count is the data's: it must only run
+                   "rank48": {"tk_select": 1, "blockify_field": 0},
+                   "rank27_im2row": {"tk_select": 1, "blockify_field": 32}}
 # the wide kernel's palette sizes held against its plain version
 WIDE_S = (33, 48, 64, 128, 200, 256)
+# the blockify kernel's depths: the motion ranking's 3 r^2, r = 8..1
+BLOCKIFY_K = (192, 147, 108, 75, 48, 27, 12, 3)
 # the clip's device bytes at 1280x720x32 (frames and canonical tiles, ~177
 # MB): the host paths set their budgets below it
 CLIP_BYTES = 32 * 720 * 1280 * 3 + 32 * 90 * 160 * 192
@@ -180,14 +211,19 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
     """Mean milliseconds of fn() on the card over reps runs (after one
-    warm-up run), by CUDA events."""
+    warm-up run), by CUDA events. ``queued``: the card first sleeps while
+    the host enqueues all the runs, so that a kernel shorter than its
+    launch from Python is timed on the device alone."""
     import torch
 
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)  # ~10 ms of the SM clock: the enqueue fits
     start.record()
     for _ in range(reps):
         fn()
@@ -496,26 +532,36 @@ def check_knn_v1(torch, dev, N=CELL_ROW, T=CORPUS_T, k=64):
             "library_ms": None, "gemm_ms": gemm_ms}
 
 
-def check_blockify(torch, dev, mh=98, mw=168, K=192):
-    """The motion field of a 1280x720 frame at radius 32 (P = 32)."""
+def check_blockify(torch, dev, mh=98, mw=168, depths=BLOCKIFY_K):
+    """The motion field of a 1280x720 frame at radius 32 (P = 32), at each
+    depth K of ``depths``: bit-identical, then timed. Returns the first
+    depth's figures, with every depth's under "shapes"."""
     from tiler_tpu_torch.kernels import blockify as bl
 
-    gen = torch.Generator(device=dev).manual_seed(3)
-    F = torch.randn(8 * mh, 8 * mw, K, device=dev, generator=gen).to(torch.bfloat16)
-    got = bl.blockify_field(F)
-    want = bl.blockify_field_plain(F)
-    torch.cuda.synchronize()
-    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
-        raise AssertionError("blockify_field differs from its plain version")
-    ms = cuda_ms(lambda: bl.blockify_field(F), 20)
-    plain_ms = cuda_ms(lambda: bl.blockify_field_plain(F), 20)
-    library_ms = cuda_ms(lambda: F.view(mh, 8, mw, 8, K).permute(0, 2, 1, 3, 4).contiguous(), 20)
-    bms, by = bound_ms(2 * F.numel() * F.element_size(), 0.0, BF16_OPS)
-    print(f"blockify_field: [{8 * mh}, {8 * mw}, {K}] bf16: bit-identical; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, permute+contiguous {library_ms:.3f} ms, "
-          f"bound {bms:.4f} ms ({by})", flush=True)
-    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": library_ms}
+    shapes = []
+    for K in depths:
+        gen = torch.Generator(device=dev).manual_seed(K)
+        F = torch.randn(8 * mh, 8 * mw, K, device=dev, generator=gen).to(torch.bfloat16)
+        got = bl.blockify_field(F)
+        want = bl.blockify_field_plain(F)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"blockify_field differs from its plain version at K={K}")
+        del got, want
+        # queued: at small K a run is shorter than its launch from Python
+        ms = cuda_ms(lambda: bl.blockify_field(F), 20, queued=True)
+        plain_ms = cuda_ms(lambda: bl.blockify_field_plain(F), 20, queued=True)
+        library_ms = cuda_ms(
+            lambda: F.view(mh, 8, mw, 8, K).permute(0, 2, 1, 3, 4).contiguous(), 20,
+            queued=True)
+        bms, by = bound_ms(2 * F.numel() * F.element_size(), 0.0, BF16_OPS)
+        print(f"blockify_field: [{8 * mh}, {8 * mw}, {K}] bf16: bit-identical; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, permute+contiguous {library_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}), {bms / ms:.1%} of the bound", flush=True)
+        shapes.append({"K": K, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bms, "bound_by": by, "library_ms": library_ms})
+        del F
+    return {**{k: v for k, v in shapes[0].items() if k != "K"}, "shapes": shapes}
 
 
 def encode_path(name, settings, kernels, F=32, H=720, W=1280, min_corpus=65536,
@@ -592,7 +638,8 @@ def encode_path(name, settings, kernels, F=32, H=720, W=1280, min_corpus=65536,
            "psnr_rgb_db": psnr_rgb, "bytes": enc.stats.total_bytes,
            "keyframes": len(st.keyframes),
            "phase_b_searches": enc.step_stats["phase_b_searches"], "peak_bytes": peak,
-           "two_opt_inner": inner, "stream": open(stream, "rb").read()}
+           "two_opt_inner": inner, "ivf_blocks": enc.step_stats["ivf_blocks"],
+           "ivf_overflow": enc.step_stats["ivf_overflow"], "stream": open(stream, "rb").read()}
     if after is not None:
         out.update(after(enc, stream))
     if not again:
@@ -935,6 +982,75 @@ def epu_paths(default, wide256):
     return out
 
 
+class BlockifyDepths:
+    """Records the depth K of every blockify_field call that the motion
+    search makes while it is open (the wrapper itself counts launches)."""
+
+    def __enter__(self):
+        from tiler_tpu_torch.pipeline import motion
+
+        self.motion, self.real, self.depths = motion, motion.blockify_field, []
+
+        def record(F):
+            self.depths.append(F.shape[-1])
+            return self.real(F)
+
+        motion.blockify_field = record
+        return self
+
+    def __exit__(self, *exc):
+        self.motion.blockify_field = self.real
+
+
+def search_paths(default, im2row_v1):
+    """The last motion and corpus-search settings (point 10 of the module
+    docstring), against the default encode and im2row_v1."""
+    from tiler_tpu_torch.config import EncoderSettings
+
+    out = {"ivf": encode_path("ivf", EncoderSettings(knn_backend="ivf"), ("tk_select",),
+                              again=False)}
+    run = out["ivf"]
+    check_against_reference("ivf", run)
+    d_db = run["psnr_hvs_db"] - default["psnr_hvs_db"]
+    print(f"[ivf] {run['ivf_blocks']} blocks of 128 tiles, {run['ivf_overflow']:.6%} of the "
+          f"cells' probes dropped by the capacity (the last row's padding, its last cell "
+          f"repeated, not counted); against the default: PSNR-HVS {d_db:+.4f} dB, "
+          f"bytes {(run['bytes'] - default['bytes']) / default['bytes']:+.4%}; stage (s): "
+          "ivf / default's second encode: "
+          + " ".join(f"{k}={v:.3f}/{default['second_stage_s'][k]:.3f}"
+                     for k, v in run["stage_s"].items()), flush=True)
+    if not run["ivf_blocks"] > 0:
+        raise AssertionError("the ivf encode did not search through an IVF")
+    if not run["ivf_overflow"] < 0.01:
+        raise AssertionError(f"the IVF dropped {run['ivf_overflow']:.4%} of its probes")
+    if abs(d_db) > 1.0:
+        raise AssertionError(f"the ivf encode is {d_db:+.4f} dB from the default")
+    out["rank48"] = encode_path("rank48", EncoderSettings(motion_rank_dims=48),
+                                ("tk_select", "knn_bucket_top2"), again=False)
+    check_against_reference("rank48", out["rank48"], corpus=None)
+    with BlockifyDepths() as rec:
+        out["rank27_im2row"] = encode_path(
+            "rank27_im2row", EncoderSettings(motion_field="im2row", motion_rank_dims=27),
+            ("tk_select", "knn_bucket_top2", "blockify_field"), again=False)
+    check_against_reference("rank27_im2row", out["rank27_im2row"], corpus=None)
+    if set(rec.depths) != {27} or len(rec.depths) != out["rank27_im2row"]["launches"][
+            "blockify_field"]:
+        raise AssertionError(f"rank27_im2row relaid out its field at depths {rec.depths}")
+    for name in ("rank48", "rank27_im2row"):
+        run = out[name]
+        print(f"[{name}] T {run['corpus_tiles']}; stage (s) {name} / default: "
+              + " ".join(f"{k}={v:.3f}/{default['second_stage_s'][k]:.3f}"
+                         for k, v in run["stage_s"].items())
+              + "".join(f"; against {ref_name}: PSNR-HVS "
+                        f"{run['psnr_hvs_db'] - ref['psnr_hvs_db']:+.4f} dB, bytes "
+                        f"{(run['bytes'] - ref['bytes']) / ref['bytes']:+.4%}"
+                        for ref_name, ref in (("default", default), ("im2row_v1", im2row_v1))),
+              flush=True)
+    print(f"[rank27_im2row] blockify_field at K = {sorted(set(rec.depths))}, "
+          f"{len(rec.depths)} calls", flush=True)
+    return out
+
+
 def wide_paths(default):
     """The wide palettes and the other palette and dither settings (point
     8 of the module docstring), each against the default encode."""
@@ -1061,17 +1177,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     epu_paths(default, wide["wide256"])
     torch.cuda.empty_cache()
+    search = search_paths(default, im2row_v1)
+    torch.cuda.empty_cache()
     checks["tk_select_wide"] = check_tk_wide(
         torch, dev, {"wide256": (wide["wide256"]["corpus_tiles"], 16, 256),
                      "wide64": (wide["wide64"]["corpus_tiles"], 1024, 64)})
     for shape in checks["tk_select_wide"]["shapes"]:
         shape["launches"] = wide[shape["path"]]["launches"]["tk_select_wide"]
+    # blockify's launches at each depth: the encode paths that run it
+    path_at = {192: im2row_v1, 27: search["rank27_im2row"]}
+    for shape in checks["blockify_field"]["shapes"]:
+        shape["launches"] = path_at[shape["K"]]["launches"]["blockify_field"] \
+            if shape["K"] in path_at else 0
     torch.cuda.empty_cache()
     knn_on_encode_data()
     small_clip_agreement()
     small_clip_agreement(dithering_use_thomas_knoll=False)
     small_clip_agreement(phase_b_motion="research", int16_features=True)
     small_clip_agreement(phase_b_motion="research")
+    small_clip_agreement(knn_backend="ivf", ivf_min_corpus=1)
+    small_clip_agreement(motion_rank_dims=48, phase_b_motion="research")
+    small_clip_agreement(motion_field="im2row", motion_rank_dims=12)
     yliluoma2_dither_agreement()
     y4m_device_ingest()
 

@@ -259,6 +259,72 @@ def test_blockify_kernel_matches_plain(cuda, mh, mw, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [3, 12, 27, 48, 75, 108, 147, 192])
+def test_blockify_kernel_every_depth(cuda, K):
+    """Every depth 3 r^2 the motion ranking reaches, on a field whose
+    block counts are not powers of two: bit-identical."""
+    F = torch.randn(8 * 13, 8 * 21, K, generator=torch.Generator().manual_seed(K))
+    F = F.to(torch.bfloat16)
+    before = t_blk.blockify_field.launches
+    got = t_blk.blockify_field(F.to(cuda))
+    torch.cuda.synchronize()
+    assert t_blk.blockify_field.launches == before + 1
+    assert torch.equal(got.cpu().view(torch.int16), t_blk.blockify_field(F).view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", [False, True], ids=["clustered", "hot_block"])
+@pytest.mark.parametrize("kk", [1, 16])
+def test_ivf_topk_on_the_card_matches_the_cpu(cuda, kk, hot):
+    """The IVF search (plain tensor passes) on the card against the CPU, on
+    one layout, for clustered queries and for queries that all probe one
+    cluster's blocks, over their capacity (2,362 of 8,192 probes drop):
+    the same drops, ids equal on >= 98% of the entries, distances within
+    one bf16 ulp plus 2^-18 of the largest |f|^2 (f32 sums in another
+    order, then bf16)."""
+    from tiler_tpu_torch.pipeline import ivf
+
+    rng = np.random.RandomState(3)
+    centers = rng.randn(40, 192).astype(np.float32) * 20
+    label = rng.randint(0, 40, 4096)
+    ds = torch.as_tensor(centers[label] + rng.randn(4096, 192).astype(np.float32))
+    q = (ds[:1] + torch.as_tensor(rng.randn(1024, 192).astype(np.float32)) if hot
+         else ds[rng.randint(0, 4096, 1024)] + 0.5)
+    lay = ivf.ivf_layout(ds, label, 64)
+    want = ivf.ivf_search(q, lay, kk)
+    got = ivf.ivf_search(q.to(cuda), ivf.IVFState(*(x.to(cuda) for x in lay)), kk)
+    idx, err, dropped = (x.cpu() for x in got)
+    assert int(dropped.sum()) == int(want[2].sum()) and bool(dropped.any()) == hot
+    assert float((dropped == want[2]).float().mean()) >= 0.98
+    assert float((idx == want[0]).float().mean()) >= 0.98
+    ulp = 2.0 ** (torch.floor(torch.log2(torch.maximum(err.abs(), want[1].abs()) + 1e-30)) - 7)
+    scale = 2.0 ** -18 * float((q * q).sum(1).max())
+    assert bool(((err - want[1]).abs() <= ulp + scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,field", [(48, "passes"), (27, "im2row"), (3, "im2row")])
+def test_rank_dims_motion_on_the_card_matches_the_cpu(cuda, dims, field):
+    """motion_rank_dims < 192 on the card (the im2row field through the
+    blockify kernel at K = dims) against the CPU: vectors agree except on
+    near-ties, the exact errors within 1e-5 relative where they agree."""
+    from tiler_tpu_torch.ops.metrics import euclidean_to_psnr
+    from tiler_tpu_torch.pipeline import motion
+    from tiler_tpu_torch.utils.clips import synthetic_clip
+
+    clip = torch.as_tensor(synthetic_clip(2, 72, 128, seed=4))
+    before = t_blk.blockify_field.launches
+    gy, gx, ge = (v.cpu() for v in motion.motion_search(
+        clip[1].to(cuda), clip[0].to(cuda), 16, field, rank_dims=dims))
+    assert t_blk.blockify_field.launches == before + (field == "im2row")
+    wy, wx, we = motion.motion_search(clip[1], clip[0], 16, field, rank_dims=dims)
+    same = (gy == wy) & (gx == wx)
+    tie = (euclidean_to_psnr(ge) >= 51.0) & (euclidean_to_psnr(we) >= 51.0)
+    assert float((same | tie).float().mean()) >= 0.99
+    assert torch.allclose(ge[same], we[same], rtol=1e-5)
+
+
+@pytest.mark.cuda
 def test_knn_v1_kernel_matches_plain(cuda):
     gen = torch.Generator().manual_seed(8)
     feats = torch.randn(1000, 192, generator=gen) * 50

@@ -12,7 +12,10 @@ and the rule that the port imports nothing of the JAX package.
   give what the originals give, memmaps included.
 
 That the port and chip_smoke.py import nothing of jax, the JAX package
-or bench.py is test_torch_ops.py::test_import_pulls_no_jax_or_triton.
+or bench.py is test_torch_ops.py::test_import_pulls_no_jax_or_triton;
+the host modules that came with the IVF and the tooling (``pipeline/
+ivf.py``, ``render.py``, ``preview.py``) are also imported one by one in
+a process of their own here.
 """
 import dataclasses
 import os
@@ -71,6 +74,22 @@ def test_settings_equal_the_reference(text):
     ref = JaxSettings.from_ini(text) if text else JaxSettings()
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port.to_ini() == ref.to_ini()
+
+
+_IMPORT_ONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+print(sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "tiler_tpu", "bench")))
+"""
+
+
+@pytest.mark.parametrize("module", ["tiler_tpu_torch.pipeline.ivf", "tiler_tpu_torch.render",
+                                    "tiler_tpu_torch.preview"])
+def test_host_module_imports_no_jax(module):
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], capture_output=True,
+                         text=True, check=True, cwd=ROOT, timeout=120).stdout
+    assert out.strip() == "[]", out
 
 
 def test_synthetic_clip_is_the_benchmark_clip():

@@ -64,8 +64,11 @@ def test_blockify_wrapper_rejects_bad_arguments():
         t_blk.blockify_field(F.float())
     with pytest.raises(ValueError, match="multiples of 8"):
         t_blk.blockify_field(F[:12])
-    with pytest.raises(ValueError, match="16-byte"):
-        t_blk.blockify_field(torch.zeros(16, 16, 12, dtype=torch.bfloat16))
+    # every depth K >= 1 is taken (runs of eight rows are K 16-byte vectors)
+    with pytest.raises(ValueError, match="depth"):
+        t_blk.blockify_field(torch.zeros(16, 16, 0, dtype=torch.bfloat16))
+    assert t_blk.blockify_field(torch.zeros(16, 16, 12, dtype=torch.bfloat16)).shape == (
+        2, 2, 64, 12)
     with pytest.raises(ValueError, match="contiguous"):
         t_blk.blockify_field(F.transpose(0, 1))
     with pytest.raises(ValueError, match="no kernel"):

@@ -149,19 +149,22 @@ def test_metrics():
 
 # each case keeps the id it had before the settings ported since left
 # the list (int16_features-6, host_ram_budget-10, hbm_frames_budget-14,
-# use_pallas_tk-12, palette sizes up to 256, epu_two_stage-2 and
-# epu_fused_fp-3 are accepted now, and ids 2 and 3 name the two-stage
-# EPU's own settings;
+# use_pallas_tk-12, palette sizes up to 256, epu_two_stage-2,
+# epu_fused_fp-3, knn_backend="ivf" and motion_rank_dims 3 r^2 are
+# accepted now; ids 2 and 3 name the two-stage EPU's own settings, id 0
+# the IVF's probe count and id 5 a depth that is not 3 r^2;
 # phase_b_motion-7, color_quantizer-9 and dithering_mode-13 are unknown
 # names, palette_size-16 and -17 sizes a byte cannot index)
 OFF_SLICE = [
-    ("knn_backend-0", "knn_backend", dict(knn_backend="ivf")),
+    # the IVF search itself is ported: only a probe count it cannot run
+    ("knn_backend-0", "ivf_probes", dict(knn_backend="ivf", ivf_probes=0)),
     ("knn_backend-1", "knn_backend", dict(knn_backend="pallas_v3")),  # no such backend
     # the two-stage EPU's stage 1 ranks on the r x r low-frequency block
     ("epu_stage1_dims-2", "epu_stage1_dims", dict(epu_two_stage=True, epu_stage1_dims=50)),
     ("epu_stage1_m-3", "epu_stage1_m", dict(epu_two_stage=True, epu_stage1_m=0)),  # no pair
     ("motion_field-4", "motion_field", dict(motion_field="im2col")),  # no such field
-    ("motion_rank_dims-5", "motion_rank_dims", dict(motion_rank_dims=48)),
+    # motion ranks on each channel's r x r low-frequency block: 3 r^2 only
+    ("motion_rank_dims-5", "motion_rank_dims", dict(motion_rank_dims=50)),
     ("phase_b_motion-7", "phase_b_motion", dict(phase_b_motion="recompute")),  # no such mode
     # Yliluoma2 itself is ported: only a plan size it cannot hold is refused
     ("dithering_use_thomas_knoll-8", "dithering_use_thomas_knoll",
@@ -198,7 +201,10 @@ ENCODED = {"int16": dict(int16_features=True), "research": dict(phase_b_motion="
            "color_quantizer-9": dict(color_quantizer="mediancut"),
            "dithering_mode-13": dict(dithering_mode="wavelets"),
            "palette_size-64": dict(palette_size=64), "palette_size-256": dict(palette_size=256),
-           "epu_two_stage-2": dict(epu_two_stage=True), "epu_fused_fp-3": dict(epu_fused_fp=True)}
+           "epu_two_stage-2": dict(epu_two_stage=True), "epu_fused_fp-3": dict(epu_fused_fp=True),
+           "knn_backend-ivf": dict(knn_backend="ivf", ivf_min_corpus=1),
+           "motion_rank_dims-48": dict(motion_rank_dims=48),
+           "motion_rank_dims-3_im2row": dict(motion_rank_dims=3, motion_field="im2row")}
 
 
 @pytest.mark.parametrize("overrides", [

@@ -1,10 +1,12 @@
 """Headless CLI of the port.
 
   python -m tiler_tpu_torch <settings.ini>             full encode
-  python -m tiler_tpu_torch encode -i IN -o OUT [...]  encode with flags
+  python -m tiler_tpu_torch encode -i IN -o OUT [...]  encode with flags (a step
+                                                       range, resume, exports)
   python -m tiler_tpu_torch decode IN.gtm OUT.y4m      decode to Y4M (or PNGs)
   python -m tiler_tpu_torch info IN.gtm [--full]       header (and stream) dump
   python -m tiler_tpu_torch selftest                   math invariants
+  python -m tiler_tpu_torch preview IN.gtm [--video V] HTTP inspector
 
 Settings files are the JAX package's (``EncoderSettings.from_ini``). The
 device is ``cuda`` unless ``--device`` names another.
@@ -17,7 +19,7 @@ import sys
 
 import numpy as np
 
-SUBCOMMANDS = ("encode", "decode", "info", "selftest")
+SUBCOMMANDS = ("encode", "decode", "info", "selftest", "preview")
 
 
 def _settings(path, overrides):
@@ -30,8 +32,28 @@ def _settings(path, overrides):
     return s
 
 
+def _host(v):
+    """A state field as a numpy array (the port keeps the large ones as
+    tensors on its device); None stays None."""
+    import torch
+
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+
+def _step_range(steps: str, all_steps):
+    """"a:b" is a range (open ends default to the first and last step); a
+    bare "a" is that one step."""
+    a, colon, b = steps.partition(":")
+    a = a or all_steps[0]
+    b = b or (all_steps[-1] if colon else a)
+    return all_steps[all_steps.index(a):all_steps.index(b) + 1]
+
+
 def cmd_encode(args):
-    from .pipeline.encoder import Encoder
+    """The encode (``--steps``: a contiguous range of it; ``--resume``: from a
+    checkpoint of either package, with its own settings unless ``-s`` names
+    others), then the checkpoint and the exports."""
+    from .pipeline.encoder import STEPS, Encoder, check_settings
 
     settings = _settings(args.settings, dict(
         input_file_name=args.input,
@@ -42,10 +64,36 @@ def cmd_encode(args):
         global_tiling_quality_based_tile_count=args.quality,
         frame_count=args.frames,
     ))
-    enc = Encoder(settings, device=args.device)
-    enc.run_all()
+    if args.resume:
+        enc = Encoder.load_checkpoint(args.resume, device=args.device)
+        if args.settings:
+            check_settings(settings)
+            enc.settings = settings
+    else:
+        enc = Encoder(settings, device=args.device)
+    if args.steps:
+        for name in _step_range(args.steps, STEPS):
+            if name == "load":
+                enc.load_video()
+            else:
+                getattr(enc, name)()
+    else:
+        enc.run_all()
     if args.checkpoint:
         enc.save_checkpoint(args.checkpoint)
+    if args.export_y4m or args.export_pngs:
+        from .bitstream.gtm import GTMDecoder
+        from .io.export import write_pngs, write_y4m
+
+        frames = GTMDecoder(settings.output_file_name).decode_frames()
+        if args.export_y4m:
+            write_y4m(args.export_y4m, [f[..., :3] for f in frames], enc.state.fps)
+        if args.export_pngs:
+            write_pngs(args.export_pngs, frames, _host(enc.state.palettes_rgb))
+    if args.export_input_y4m:
+        from .io.export import write_y4m
+
+        write_y4m(args.export_input_y4m, np.asarray(_host(enc.state.frames_rgb)), enc.state.fps)
     return 0
 
 
@@ -107,6 +155,17 @@ def cmd_selftest(args):
     return 0
 
 
+def cmd_preview(args):
+    from .preview import preview_gtm
+
+    srv = preview_gtm(args.input, input_path=args.video, port=args.port, device=args.device)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        srv.shutdown()
+    return 0
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if len(argv) == 1 and not argv[0].startswith("-") and argv[0] not in SUBCOMMANDS:
@@ -130,8 +189,15 @@ def main(argv=None):
     e.add_argument("--quality", type=float)
     e.add_argument("--frames", type=int)
     e.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    e.add_argument("--steps", help="a contiguous step range, e.g. load:reduce, "
+                   "reconstruct:, or one step")
+    e.add_argument("--resume", help="resume from a checkpoint file (either package's)")
     e.add_argument("--checkpoint", help="write the encoder state after the run "
                    "(loads in either package's Encoder.load_checkpoint)")
+    e.add_argument("--export-y4m", help="the written stream, decoded, as a C444 Y4M")
+    e.add_argument("--export-input-y4m", help="the loaded input frames as a C444 Y4M")
+    e.add_argument("--export-pngs", help="the decoded frames as <base>_%%04d.png "
+                   "and the palettes as <base>.txt")
     e.set_defaults(fn=cmd_encode)
     d = sub.add_parser("decode")
     d.add_argument("input")
@@ -143,6 +209,14 @@ def main(argv=None):
     i.set_defaults(fn=cmd_info)
     t = sub.add_parser("selftest")
     t.set_defaults(fn=cmd_selftest)
+    v = sub.add_parser("preview", help="HTTP inspector over a .gtm "
+                       "(the GUI's render pages and PSNR readout)")
+    v.add_argument("input")
+    v.add_argument("--video", help="source video (enables the input page)")
+    v.add_argument("--port", type=int, default=8080)
+    v.add_argument("--device", default="cuda", help="torch device that loads the "
+                   "video (default: cuda)")
+    v.set_defaults(fn=cmd_preview)
     args = p.parse_args(argv)
     return args.fn(args)
 

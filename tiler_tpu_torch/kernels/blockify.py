@@ -36,15 +36,14 @@ def _check(F: torch.Tensor):
     HP, WP, K = F.shape
     if HP % 8 or WP % 8:
         raise ValueError(f"blockify_field: HP={HP} and WP={WP} must be multiples of 8")
-    if K % 8:
-        raise ValueError(f"blockify_field: K={K} must be a multiple of 8 "
-                         "(rows move as 16-byte vectors)")
+    if K < 1:
+        raise ValueError(f"blockify_field: K={K}: the field needs a depth of at least 1")
 
 
 def blockify_field(F: torch.Tensor) -> torch.Tensor:
-    """[HP, WP, K] bf16 -> [mh, mw, 64, K] bf16; see
+    """[HP, WP, K] bf16 -> [mh, mw, 64, K] bf16 at any depth K >= 1; see
     :func:`blockify_field_plain`. CPU tensors run the plain version, CUDA
-    tensors the kernel."""
+    tensors the kernel (runs of eight rows, K 16-byte vectors each)."""
     _check(F)
     if F.device.type == "cpu":
         return blockify_field_plain(F)

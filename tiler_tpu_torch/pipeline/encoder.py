@@ -33,6 +33,22 @@ from . import reduce as reduce_mod
 from . import reindex as reindex_mod
 from . import save as save_mod
 
+STEPS = (
+    "load",
+    "predict_motion",
+    "reduce",
+    "prepare_palettes",
+    "dither",
+    "reconstruct",
+    "reindex",
+    "save",
+)
+
+
+class GTMReloadError(Exception):
+    """Stream/video mismatch on re-import (ETilingEncoderGTMReloadError,
+    tilingencoder.pas:112, raised :5030)."""
+
 
 class _SpilledRef:
     """Checkpoint placeholder for a disk-spilled (memmap) state field;
@@ -51,29 +67,29 @@ _CHECKPOINT_CLASSES = {
 }
 
 
-def _stage1_dims_ok(dims: int) -> bool:
-    try:
-        reconstruct_mod._lowfreq_vu(dims)
-    except ValueError:
-        return False
-    return True
+def _lowfreq_dims_ok(dims: int) -> bool:
+    """dims = 3 r^2 with 1 <= r <= 8: each channel's r x r low-frequency
+    DCT block (the two-stage EPU's and the motion ranking's depths)."""
+    return any(dims == 3 * r * r for r in range(1, 9))
 
 
 def check_settings(s: EncoderSettings):
     """Raise ValueError naming the first setting the port does not run."""
     rules = (
-        ("knn_backend", s.knn_backend not in ("pallas", "pallas_v1", "xla"),
-         "only the 'pallas', 'pallas_v1' and 'xla' top-k backends are "
-         "ported (the IVF search is not)"),
-        ("epu_stage1_dims", s.epu_two_stage and not _stage1_dims_ok(s.epu_stage1_dims),
+        ("knn_backend", s.knn_backend not in ("pallas", "pallas_v1", "xla", "ivf"),
+         "the top-k backends are 'pallas', 'pallas_v1', 'xla' and 'ivf'"),
+        ("ivf_probes", s.knn_backend == "ivf" and s.ivf_probes < 1,
+         "the IVF search probes at least one block a cell"),
+        ("epu_stage1_dims", s.epu_two_stage and not _lowfreq_dims_ok(s.epu_stage1_dims),
          "the two-stage EPU ranks on the low-frequency r x r block of each "
          "channel's 8 x 8 DCT, so its dims are 3*r^2 with 1 <= r <= 8"),
         ("epu_stage1_m", s.epu_two_stage and s.epu_stage1_m < 1,
          "the two-stage EPU re-ranks at least one pair a cell exactly"),
         ("motion_field", s.motion_field not in ("passes", "im2row"),
          "only the 'passes' and 'im2row' window fields exist"),
-        ("motion_rank_dims", s.motion_rank_dims != 192,
-         "only full 192-dim motion ranking is ported"),
+        ("motion_rank_dims", not _lowfreq_dims_ok(s.motion_rank_dims),
+         "motion candidates rank on the low-frequency r x r block of each "
+         "channel's 8 x 8 DCT, so the dims are 3*r^2 with 1 <= r <= 8"),
         ("phase_b_motion", s.phase_b_motion not in ("reuse", "research"),
          "only the 'reuse' and 'research' phase-B modes exist"),
         ("dithering_yliluoma2_mixed_colors",
@@ -239,6 +255,63 @@ class Encoder:
             .reindex()
             .save(out_path)
         )
+
+    def reload_gtm(self, path: str):
+        """Re-import an encoded .gtm into the encoder's state for inspection
+        (ReloadGTM, tilingencoder.pas:2059-2074; validation :5022-5030),
+        through the port's GTMReader. The tiles and palettes go to the
+        encoder's device, as the stages keep them; the tilemap and the
+        keyframes stay numpy. Raises GTMReloadError when the stream does
+        not match a loaded video."""
+        from ..bitstream.gtm import GTMReader
+
+        g = GTMReader.read(path)
+        st = self.state
+        if st.n_frames:
+            problems = []
+            if len(g.frames) != st.n_frames:
+                problems.append(f"GTM FrameCount = {len(g.frames)}; FrameCount = {st.n_frames}")
+            if g.width != st.width:
+                problems.append(f"GTM ScreenWidth = {g.width}; ScreenWidth = {st.width}")
+            if g.height != st.height:
+                problems.append(f"GTM ScreenHeight = {g.height}; ScreenHeight = {st.height}")
+            if problems:
+                raise GTMReloadError("Mismatch between GTM and loaded video!\n"
+                                     + "\n".join(problems))
+        st.tilemap_w, st.tilemap_h = g.tilemap_w, g.tilemap_h
+        st.fps = g.fps or st.fps
+        F, N = len(g.frames), g.tilemap_w * g.tilemap_h
+        tm = state_mod.TileMapSoA.zeros(F, N)
+        for f, fr in enumerate(g.frames):
+            tm.tile_idx[f] = fr.tile_idx
+            tm.pal_idx[f] = fr.pal_idx
+            tm.predicted[f] = fr.predicted
+            tm.pred_x[f] = fr.pred_x
+            tm.pred_y[f] = fr.pred_y
+            tm.hmirror[f] = fr.hmirror
+            tm.vmirror[f] = fr.vmirror
+        st.tilemap = tm
+        T = len(g.tiles_pal)
+        st.corpus_use = np.zeros(T, np.int64)
+        np.add.at(st.corpus_use, tm.tile_idx[tm.tile_idx >= 0], 1)
+
+        def dev(a):
+            return None if a is None else torch.as_tensor(np.array(a), device=self.device)
+
+        st.corpus_pal_pixels = dev(g.tiles_pal)
+        st.corpus_pal_initial = dev(np.zeros(T, np.int32))
+        st.palettes_rgb = dev(g.palettes_rgb)
+        st.palettes_valid = (None if g.palettes_rgb is None
+                             else dev(np.ones(g.palettes_rgb.shape[:2], bool)))
+        st.keyframes = []
+        start = 0
+        for k, end in enumerate(i for i, e in enumerate(g.keyframe_end) if e):
+            st.keyframes.append(state_mod.KeyFrameInfo(k, start, end))
+            start = end + 1
+        st.frame_kf = np.zeros(F, np.int32)
+        for kf in st.keyframes:
+            st.frame_kf[kf.start_frame:kf.end_frame + 1] = kf.index
+        return self
 
     # --- checkpoint/resume --------------------------------------------------
     def save_checkpoint(self, path: str):

@@ -57,7 +57,8 @@ def predict_motion(state: EncodeState, settings: EncoderSettings,
         src = to_device(frames[lo:hi], dev) if host else frames
         for f in range(i, j):
             y, x, err = motion_search(src[f - lo], src[refs[f] - lo], R, settings.motion_field,
-                                      int16=settings.int16_features)
+                                      int16=settings.int16_features,
+                                      rank_dims=settings.motion_rank_dims)
             oy.append(y.reshape(-1))
             ox.append(x.reshape(-1))
             psnr.append(euclidean_to_psnr(err).reshape(-1))

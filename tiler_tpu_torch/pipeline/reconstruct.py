@@ -5,10 +5,15 @@ Counterpart of the default path of ``tiler_tpu/pipeline/reconstruct.py``:
   Phase A (independent per cell): each cell's top-k corpus tiles by
     squared feature distance -- kernel B2 (``kernels/knn_topk.py``), or
     the v1 kernel under ``knn_backend="pallas_v1"``, on the card when the
-    corpus is wide enough, an exact bf16 top-k below that -- then the EPU cartesian re-rank of (candidate tile, candidate
-    palette) pairs and the exact fp32 error of the winner. Cells whose
-    motion prediction is already perfect get only a cheap k=1 nearest
-    tile. The cells run in rows of ``CELL_ROW``, the port's frame loop.
+    corpus is wide enough, an exact bf16 top-k below that; under
+    ``knn_backend="ivf"`` from ``ivf_min_corpus`` tiles up the two-level
+    IVF search (``pipeline/ivf.py``) -- then the EPU cartesian re-rank of
+    (candidate tile, candidate palette) pairs and the exact fp32 error of
+    the winner. Cells whose motion prediction is already perfect get only
+    a cheap k=1 nearest tile. The cells run in rows of ``CELL_ROW``, the
+    port's frame loop; under the IVF a short last row is padded with its
+    last cell, as the JAX package pads it, since the IVF's capacity and
+    drops depend on the row.
   Phase B (sequential per keyframe): a frame loop with the framebuffer
     carried. Under ``phase_b_motion="reuse"`` (the default) each cell
     keeps its phase-A motion vector, whose error is evaluated exactly
@@ -47,6 +52,7 @@ from ..models.state import EncodeState
 from ..ops.color import rgb_to_yuv
 from ..ops.dct import DCT_MAT, DCT_WEIGHTS
 from ..ops.metrics import euclidean_to_psnr
+from .ivf import build_ivf, ivf_search
 from .load import to_device
 from .motion import motion_search, tile_features_raster
 
@@ -367,12 +373,19 @@ def _exact_choice_err(feats, tile, pal, pp, palettes, int16: bool = False):
     return (d * d).sum(dim=1)
 
 
-def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str):
+def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str, cells: int):
     """Phase A for one row of cells: tiles [M, 8, 8, 3] uint8 ->
-    (tile int64 [M], pal int64 [M], exact err f32 [M]). ``kernel`` is
-    "v2" (B2), "v1" or "" (the exact top-k)."""
+    (tile int64 [M], pal int64 [M], exact err f32 [M]). With an IVF in
+    ``ctx`` it searches every row (as the JAX package's ``ivf`` argument
+    takes precedence), and counts the probes it dropped of the row's first
+    ``cells`` cells (the rest pad the row); else ``kernel`` is "v2" (B2),
+    "v1" or "" (the exact top-k)."""
     feats = _features(tiles.float(), ctx["int16"])
-    if kernel == "v1":
+    if ctx["ivf"] is not None:
+        idx, _, dropped = ivf_search(feats, ctx["ivf"], kk, ctx["ivf_probes"])
+        ctx["ivf_dropped"] += dropped[:cells].sum()
+        ctx["ivf_slots"] += cells * min(ctx["ivf_probes"], ctx["ivf"].n_blocks)
+    elif kernel == "v1":
         idx, _ = knn_bucket_topk(feats, ctx["dsT"], ctx["d2p"], kk)
         ctx["kernel_cells"] += feats.shape[0]
     elif kernel == "v2":
@@ -398,8 +411,10 @@ def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str):
 def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
     """Phase A: per-cell best (tile, palette, err) as [F, N] tensors;
     cells skipped as perfectly predicted get the cheap k=1 choice. Writes
-    the corpus size and the cells that went through a top-k kernel (B2
-    or v1) to ``stats``."""
+    the corpus size, the cells that went through a top-k kernel (B2 or
+    v1), the IVF's block count (0 without one) and the share of the
+    cells' probes that its capacity dropped (the padding of a short row
+    not counted) to ``stats``."""
     F, N = state.n_frames, state.tilemap_size
     dev = state.corpus_pal_pixels.device
     S = settings.palette_size
@@ -442,8 +457,11 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
         "ds": ds, "pal_initial": pal_initial, "pp": pp, "palettes": palettes,
         "pal_yuv": rgb_to_yuv(palettes.float()), "S": S,
         "cell_chunk": max(64, min(4096, int(3e8 / per_cell))),
-        "kernel_cells": 0, "int16": int16,
+        "kernel_cells": 0, "int16": int16, "ivf": None, "ivf_probes": settings.ivf_probes,
+        "ivf_dropped": 0, "ivf_slots": 0,
     }
+    if settings.knn_backend == "ivf" and T >= settings.ivf_min_corpus:
+        ctx["ivf"] = build_ivf(ds)
     Tp = -(-T // TP_ALIGN) * TP_ALIGN
     if kernel == "v1":
         ctx["dsT"], ctx["d2p"] = knn_prep_v1(ds, Tp)
@@ -483,12 +501,17 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
                         (sel_cheap, (1, 1, False, ""))):
         for r0 in range(0, len(cells), CELL_ROW):
             rows = cells[r0:r0 + CELL_ROW]
+            n = len(rows)
+            if ctx["ivf"] is not None and n < CELL_ROW:
+                rows = np.concatenate([rows, np.full(CELL_ROW - n, rows[-1])])
             c = torch.as_tensor(rows, device=dev)
             tiles = to_device(tiles_flat[rows], dev) if host else tiles_flat[c]
-            t, p, e = _knn_cells(tiles, ctx, *args)
-            kt[c], kp[c], ke[c] = t, p, e
+            t, p, e = _knn_cells(tiles, ctx, *args, cells=n)
+            kt[c[:n]], kp[c[:n]], ke[c[:n]] = t[:n], p[:n], e[:n]
     stats["corpus_tiles"] = T
     stats["knn_kernel_cells"] = ctx["kernel_cells"]
+    stats["ivf_blocks"] = 0 if ctx["ivf"] is None else ctx["ivf"].n_blocks
+    stats["ivf_overflow"] = float(ctx["ivf_dropped"]) / max(1, ctx["ivf_slots"])
     return kt.reshape(F, N), kp.reshape(F, N), ke.reshape(F, N)
 
 
@@ -515,13 +538,14 @@ def _eval_vectors(cur, back, oy, ox, th: int, tw: int, int16: bool = False):
 
 def _phase_b_keyframe(frames, kt, kp, ke, hm, vm, pay, pax, pp, palettes,
                       radius: int, th: int, tw: int, mode: str, int16: bool,
-                      field_impl: str, stats: dict):
+                      field_impl: str, stats: dict, rank_dims: int = K):
     """Sequential selection/render over one keyframe's frames, carrying
     the framebuffer. Inputs are [L, ...] slices; returns per-frame
     (oy, ox int32 [L, N], use_pred bool [L, N], err f32 [L, N]).
     ``mode`` "reuse" evaluates the phase-A vectors against the
-    reconstruction, "research" searches it again (``field_impl``); each
-    re-searched frame adds one to ``stats["phase_b_searches"]``."""
+    reconstruction, "research" searches it again (``field_impl``, ranked
+    at ``rank_dims``); each re-searched frame adds one to
+    ``stats["phase_b_searches"]``."""
     dev = frames.device
     L = frames.shape[0]
     H, W = th * TILE_W, tw * TILE_W
@@ -537,7 +561,7 @@ def _phase_b_keyframe(frames, kt, kp, ke, hm, vm, pay, pax, pp, palettes,
             win = torch.zeros(N, TILE_W, TILE_W, 3, device=dev)
         elif mode == "research":
             oy, ox, mperr, win = motion_search(cur, back, radius, field_impl, int16=int16,
-                                               return_windows=True)
+                                               return_windows=True, rank_dims=rank_dims)
             oy, ox, mperr = oy.reshape(N), ox.reshape(N), mperr.reshape(N)
             stats["phase_b_searches"] = stats.get("phase_b_searches", 0) + 1
         else:
@@ -585,7 +609,8 @@ def reconstruct(state: EncodeState, settings: EncoderSettings,
         y, x, u, e = _phase_b_keyframe(
             to_device(frames[s], dev) if host else frames[s], kt[s], kp[s], ke[s],
             hm[s], vm[s], pay[s], pax[s], pp, palettes, R, th, tw,
-            settings.phase_b_motion, settings.int16_features, settings.motion_field, stats)
+            settings.phase_b_motion, settings.int16_features, settings.motion_field, stats,
+            settings.motion_rank_dims)
         oy[s], ox[s], use_pred[s] = y.cpu().numpy(), x.cpu().numpy(), u.cpu().numpy()
         psnr[s] = euclidean_to_psnr(e).cpu().numpy()
 
