@@ -79,6 +79,19 @@ resident host memory of the process during the encode (VmHWM, reset just
 before), the corpus size T and the stream. A corpus that overflows the
 int32 (tile, palette) packing raises in reconstruct: the error is printed
 and the run goes on; FRAMES then sets a shorter clip.
+
+    python3 scripts/torch_profile.py --mesh-gap
+
+instead takes the mesh encode apart against the meshless ones, on the
+1280x720x32 clip in an NCCL group of one rank, mesh (1, 1) ("data",
+"corpus"): the default (B2), knn_backend="xla" (the exact top-k of
+bf16-rounded distances), an encoder whose stages up to dither run
+meshless and whose reconstruct runs on the mesh (the same palettes as
+xla: only phase A's float32 ranking differs), and the whole mesh encode
+(its first k-means sharded too). It prints each one's PSNR-HVS, bytes,
+final tile count and reconstruct seconds (after one warm-up encode of
+each), and the gaps; then profiles the mesh encode as the default mode
+profiles a path.
 """
 import ctypes
 import os
@@ -138,13 +151,13 @@ def _busy_us(prof):
     return total, union
 
 
-def profile_path(name, settings, clip, top=12):
+def profile_path(name, settings, clip, top=12, mesh=None):
     from torch.profiler import ProfilerActivity, profile
 
     out = os.path.join(ROOT, "build", "torch_profile", f"{name}.gtm")
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    Encoder(settings, device="cuda", log=None).run_all(clip, fps=25.0, out_path=out)
-    enc = Encoder(settings, device="cuda", log=None)
+    Encoder(settings, device="cuda", log=None, mesh=mesh).run_all(clip, fps=25.0, out_path=out)
+    enc = Encoder(settings, device="cuda", log=None, mesh=mesh)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         enc.run_all(clip, fps=25.0, out_path=out)
@@ -430,6 +443,49 @@ def long_clip(F=1600, H=720, W=1280):
         torch.cuda.empty_cache()
 
 
+def mesh_gap(clip, device="cuda"):
+    import torch.distributed as dist
+
+    from tiler_tpu_torch.parallel.mesh import BACKENDS, free_port, make_mesh
+
+    out = os.path.join(ROOT, "build", "torch_profile", "mesh_gap.gtm")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    dist.init_process_group(BACKENDS[device], init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, ("data", "corpus"), device_type=device)
+
+        def encode(settings, mesh_from=None):
+            """Meshless, or on the mesh from "reconstruct" or "load" on."""
+            enc = Encoder(settings, device=device, log=None,
+                          mesh=mesh if mesh_from == "load" else None)
+            enc.load_frames(clip, 25.0).predict_motion().reduce().prepare_palettes().dither()
+            enc.mesh = mesh if mesh_from else None
+            return enc.reconstruct().reindex().save(out)
+
+        runs = {"default": lambda: encode(EncoderSettings()),
+                "xla": lambda: encode(EncoderSettings(knn_backend="xla")),
+                "mesh_reconstruct": lambda: encode(EncoderSettings(), "reconstruct"),
+                "mesh": lambda: encode(EncoderSettings(), "load")}
+        got = {}
+        for name, run in runs.items():
+            run()  # warm-up
+            enc = run()
+            got[name] = (enc.state.total_psnr, enc.stats.total_bytes,
+                         len(enc.state.corpus_pal_pixels), enc.timings["reconstruct"])
+            print(f"[mesh_gap] {name}: PSNR-HVS {got[name][0]:.4f} dB, {got[name][1]} bytes, "
+                  f"{got[name][2]} final tiles, reconstruct {got[name][3]:.3f} s", flush=True)
+        for a, b in (("mesh_reconstruct", "xla"), ("xla", "default"), ("mesh", "default"),
+                     ("mesh", "mesh_reconstruct")):
+            print(f"[mesh_gap] {a} - {b}: PSNR-HVS {got[a][0] - got[b][0]:+.4f} dB, bytes "
+                  f"{(got[a][1] - got[b][1]) / got[b][1]:+.4%}, final tiles "
+                  f"{got[a][2] - got[b][2]:+d}", flush=True)
+        if device == "cuda":
+            profile_path("mesh_nccl1", EncoderSettings(), clip, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA card is visible", file=sys.stderr)
@@ -466,6 +522,9 @@ def main() -> int:
         return 0
     if "--encode-times" in sys.argv[1:]:
         encode_times(clip)
+        return 0
+    if "--mesh-gap" in sys.argv[1:]:
+        mesh_gap(clip)
         return 0
     for name, settings in PATHS.items():
         profile_path(name, settings, clip)

@@ -502,3 +502,72 @@ def test_cli_settings_file_yliluoma2_and_scaling_on_the_card(cuda, tmp_path):
                    capture_output=True, timeout=600, cwd=Path(__file__).resolve().parents[1])
     decoded = GTMDecoder(str(out)).decode_frames()
     assert len(decoded) == len(frames) and decoded[0].shape[:2] == (48, 64)
+
+
+def _mesh_cases(device_type, out_path):
+    """sharded_topk, sharded_kmeans and a small (1, 1)-mesh encode in a
+    group of one rank (NCCL for cuda, gloo for cpu), results on the host."""
+    import torch.distributed as dist
+
+    from tiler_tpu_torch.bitstream.gtm import GTMDecoder
+    from tiler_tpu_torch.config import EncoderSettings
+    from tiler_tpu_torch.parallel import mesh as t_mesh
+    from tiler_tpu_torch.parallel.kmeans import sharded_kmeans
+    from tiler_tpu_torch.parallel.knn import sharded_topk
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.utils.clips import synthetic_clip
+
+    dist.init_process_group(t_mesh.BACKENDS[device_type], world_size=1, rank=0,
+                            init_method=f"tcp://127.0.0.1:{t_mesh.free_port()}")
+    try:
+        mesh = t_mesh.make_mesh(1, ("data", "corpus"), device_type=device_type)
+        dev = t_mesh.rank_device(mesh.device_type)
+        rng = np.random.default_rng(11)
+        feats = torch.as_tensor(rng.standard_normal((2048, 192)).astype(np.float32), device=dev)
+        ds = torch.as_tensor(rng.standard_normal((20000, 192)).astype(np.float32), device=dev)
+        idx, err = sharded_topk(feats, ds, 64, mesh)
+        pts = torch.as_tensor(rng.standard_normal((5001, 24)).astype(np.float32) * 3,
+                              device=dev)
+        w = torch.as_tensor(rng.integers(0, 4, 5001).astype(np.float32), device=dev)
+        cents, assign, _ = sharded_kmeans(pts, 64, weights=w, iters=30, seed=2, mesh=mesh)
+        enc = Encoder(EncoderSettings(palette_count=8, motion_predict_radius=4, epu_knn_k=8,
+                                      kmeans_iters=4), log=None, mesh=mesh)
+        enc.run_all(synthetic_clip(6, 64, 96), fps=25.0, out_path=out_path)
+        frames = np.stack(GTMDecoder(out_path).decode_frames())[..., :3]
+        mse = np.mean((frames.astype(np.float64) - synthetic_clip(6, 64, 96)) ** 2)
+        return {"idx": idx.cpu().numpy(), "err": err.cpu().numpy(),
+                "cents": cents.cpu().numpy(), "assign": assign.cpu().numpy(),
+                "d64": _d64(feats.cpu().numpy(), ds.cpu().numpy()),
+                "psnr": 10 * np.log10(255 * 255 / mse), "bytes": enc.stats.total_bytes,
+                "frames": len(frames), "device": enc.device.type,
+                "knn_kernel_cells": enc.step_stats["knn_kernel_cells"]}
+    finally:
+        dist.destroy_process_group()
+
+
+def _d64(feats, ds):
+    f, d = feats.astype(np.float64), ds.astype(np.float64)
+    return (f * f).sum(1)[:, None] - 2 * f @ d.T + (d * d).sum(1)[None]
+
+
+@pytest.mark.cuda
+def test_mesh_of_one_card_matches_the_cpu(cuda, tmp_path):
+    """sharded_topk, sharded_kmeans and a mesh encode in an NCCL group of
+    one rank on the card, against the same in a gloo group on the CPU:
+    top-k indices equal but at float32 near-ties and errors within 1e-4
+    relative (the card sums the product in another order), centroids
+    within 1e-5 relative, the encodes within docs/DETERMINISM.md's 0.1 dB
+    and 2% bytes. The group is destroyed after each run."""
+    got = _mesh_cases("cuda", str(tmp_path / "card.gtm"))
+    want = _mesh_cases("cpu", str(tmp_path / "cpu.gtm"))
+    assert got["device"] == "cuda" and want["device"] == "cpu"
+    np.testing.assert_allclose(got["err"], want["err"], rtol=1e-4, atol=1e-3)
+    rows, cols = np.nonzero(got["idx"] != want["idx"])
+    d64 = want["d64"]
+    gap = np.abs(d64[rows, got["idx"][rows, cols]] - d64[rows, want["idx"][rows, cols]])
+    assert np.all(gap <= 1e-4 * np.abs(d64[rows]).max(axis=1))
+    np.testing.assert_allclose(got["cents"], want["cents"], rtol=1e-5,
+                               atol=1e-5 * np.abs(want["cents"]).max())
+    assert got["knn_kernel_cells"] == 0 and got["frames"] == 6
+    assert abs(got["psnr"] - want["psnr"]) <= 0.1
+    assert abs(got["bytes"] - want["bytes"]) <= 0.02 * want["bytes"]

@@ -1,8 +1,9 @@
 """The port's host tooling against tiler_tpu's: ``Encoder.reload_gtm``
 (and ``GTMReloadError``), the CLI's encode flags ``--steps``,
-``--resume``, ``--export-y4m``, ``--export-input-y4m`` and
-``--export-pngs``, the render pages (``render.py``) and the preview
-server (``preview.py``, the CLI's ``preview``). All on the CPU.
+``--resume``, ``--export-y4m``, ``--export-input-y4m``,
+``--export-pngs`` and ``--mesh auto`` (in one process, a no-op), the
+render pages (``render.py``) and the preview server (``preview.py``, the
+CLI's ``preview``). All on the CPU.
 
 - reload_gtm: every field it writes equals the JAX package's on the same
   stream (the port's tensors read back to numpy), and both refuse a
@@ -132,6 +133,24 @@ def test_cli_steps_resume_and_exports(tmp_path):
         assert np.array_equal(np.asarray(Image.open(f"{pngs}_{i:04d}.png")), f[..., :3])
     dump = (tmp_path / "png" / "f.txt").read_text().split()
     assert len(dump) == 8 * 16  # every color of the 8 palettes of 16
+
+
+def test_cli_mesh_auto_in_one_process_is_a_noop(tmp_path, monkeypatch):
+    """--mesh auto outside a torchrun group (one process, no process
+    group): the meshless encode, to the byte (the JAX CLI's rule,
+    tests/test_cli_config.py::test_cli_mesh_auto_single_device_is_noop)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert Encoder(log=None, device="cpu", mesh="auto").mesh is None
+    y4m = tmp_path / "clip.y4m"
+    j_export.write_y4m(str(y4m), CLIP[:3], 25.0)
+    ini = tmp_path / "s.ini"
+    ini.write_text(INI)
+    out = tmp_path / "out.gtm"  # one name: the stream embeds its settings text
+    base = ["encode", "-i", str(y4m), "-o", str(out), "-s", str(ini), "--device", "cpu"]
+    assert cli.main(base) == 0
+    meshless = out.read_bytes()
+    assert cli.main(base + ["--mesh", "auto"]) == 0
+    assert out.read_bytes() == meshless
 
 
 def test_cli_step_ranges():

@@ -9,7 +9,9 @@
   python -m tiler_tpu_torch preview IN.gtm [--video V] HTTP inspector
 
 Settings files are the JAX package's (``EncoderSettings.from_ini``). The
-device is ``cuda`` unless ``--device`` names another.
+device is ``cuda`` unless ``--device`` names another. On a node of
+several cards, ``torchrun --nproc-per-node N -m tiler_tpu_torch encode ...
+--mesh auto`` encodes on all of them (one process a card; rank 0 writes).
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ def _step_range(steps: str, all_steps):
 def cmd_encode(args):
     """The encode (``--steps``: a contiguous range of it; ``--resume``: from a
     checkpoint of either package, with its own settings unless ``-s`` names
-    others), then the checkpoint and the exports."""
+    others; ``--mesh auto``: over every rank of a torchrun group), then the
+    checkpoint and the exports (rank 0's)."""
     from .pipeline.encoder import STEPS, Encoder, check_settings
 
     settings = _settings(args.settings, dict(
@@ -64,13 +67,14 @@ def cmd_encode(args):
         global_tiling_quality_based_tile_count=args.quality,
         frame_count=args.frames,
     ))
+    mesh = "auto" if args.mesh == "auto" else None
     if args.resume:
-        enc = Encoder.load_checkpoint(args.resume, device=args.device)
+        enc = Encoder.load_checkpoint(args.resume, device=args.device, mesh=mesh)
         if args.settings:
             check_settings(settings)
             enc.settings = settings
     else:
-        enc = Encoder(settings, device=args.device)
+        enc = Encoder(settings, device=args.device, mesh=mesh)
     if args.steps:
         for name in _step_range(args.steps, STEPS):
             if name == "load":
@@ -81,6 +85,8 @@ def cmd_encode(args):
         enc.run_all()
     if args.checkpoint:
         enc.save_checkpoint(args.checkpoint)
+    if not enc.writes:
+        return 0
     if args.export_y4m or args.export_pngs:
         from .bitstream.gtm import GTMDecoder
         from .io.export import write_pngs, write_y4m
@@ -188,7 +194,15 @@ def main(argv=None):
     e.add_argument("--radius", type=int)
     e.add_argument("--quality", type=float)
     e.add_argument("--frames", type=int)
-    e.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    e.add_argument("--device", help="torch device (default: cuda; under --mesh auto "
+                   "this rank's card, cuda:LOCAL_RANK)")
+    e.add_argument("--mesh", choices=("none", "auto"), default="none",
+                   help="auto: shard the corpus over every rank of the process group "
+                   "(one process a device, started by torchrun); no-op in one process. "
+                   "Another encoder than the meshless one: every cell takes the exact "
+                   "float32 top-k, with no top-k kernel and no skip of predicted cells "
+                   "(one H100, 1280x720x32, a group of one: reconstruct 4.6 s against "
+                   "0.77 s, +1.3 dB PSNR-HVS and +25%% bytes; README)")
     e.add_argument("--steps", help="a contiguous step range, e.g. load:reduce, "
                    "reconstruct:, or one step")
     e.add_argument("--resume", help="resume from a checkpoint file (either package's)")

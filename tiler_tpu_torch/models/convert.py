@@ -10,6 +10,7 @@ and the use counts stay numpy on both sides.
 from __future__ import annotations
 
 import copy
+import hashlib
 
 import numpy as np
 import torch
@@ -67,3 +68,16 @@ def state_to_numpy(state: EncodeState) -> EncodeState:
         elif v is not None and not isinstance(v, np.ndarray):
             setattr(out, name, np.asarray(v))
     return out
+
+
+def state_digest(state: EncodeState) -> str:
+    """sha256 of what a stream is written from: the tilemap, the palettes
+    and the corpus. The ranks of a mesh encode must end with the same."""
+    st = state_to_numpy(state)
+    tm = st.tilemap
+    h = hashlib.sha256()
+    for a in (tm.tile_idx, tm.pal_idx, tm.predicted, tm.pred_x, tm.pred_y, tm.hmirror,
+              tm.vmirror, tm.psnr, st.palettes_rgb, st.corpus_pal_pixels,
+              st.corpus_pal_initial, st.corpus_use):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()

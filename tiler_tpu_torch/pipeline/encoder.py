@@ -1,7 +1,15 @@
-"""Encoder facade: runs the 8 pipeline steps on one device.
+"""Encoder facade: runs the 8 pipeline steps on one device, or on every
+rank of a device mesh.
 
 Counterpart of ``tiler_tpu/pipeline/encoder.py``; it runs on ``cuda``
-unless the caller names another device. Checkpoints use the JAX
+unless the caller names another device. With a mesh
+(``parallel/mesh.py``) every rank of the process group runs the same
+encoder on the same clip and settings: predict_motion, prepare_palettes
+and reconstruct shard their work over the mesh and gather it, the other
+steps run whole on each rank, and after each step every rank holds the
+same state. Rank 0 alone writes the stream and checkpoints; the others
+receive its stream statistics, so ``Encoder.stats`` is the same on every
+rank. Checkpoints use the JAX
 package's format, a pickle of the numpy ``EncodeState`` and the settings,
 written with the port's own classes; :meth:`Encoder.load_checkpoint` also
 reads the JAX package's checkpoints by mapping its class names onto the
@@ -19,11 +27,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import PSYVIS_MODES, EncoderSettings
 from ..models import state as state_mod
 from ..models.convert import state_from_numpy, state_to_numpy
 from ..models.state import EncodeState
+from ..parallel import mesh as mesh_mod
 from . import dither as dither_mod
 from . import load as load_mod
 from . import palettes as palettes_mod
@@ -114,14 +124,37 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def resolve_mesh(mesh, device=None):
+    """``"auto"``: a one-axis ("corpus") mesh of every rank when the
+    process group (initialized here from torchrun's environment if it is
+    not yet) has more than one, else None, as the JAX package does on one
+    device; the mesh's devices are of ``device``'s type (default cuda).
+    A DeviceMesh or None is returned as it is; anything else raises."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if mesh is None or isinstance(mesh, DeviceMesh):
+        return mesh
+    if not (isinstance(mesh, str) and mesh == "auto"):
+        raise ValueError(f"mesh={mesh!r}: a DeviceMesh (parallel.make_mesh), 'auto' or None")
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world <= 1:
+        return None
+    device_type = torch.device(device).type if device is not None else "cuda"
+    mesh_mod.init_process_group(device_type)
+    return mesh_mod.make_mesh(device_type=device_type)
+
+
 class Encoder:
-    """Drives an EncodeState through the pipeline steps on ``device``."""
+    """Drives an EncodeState through the pipeline steps on ``device``.
+
+    ``mesh``: a ``DeviceMesh`` (``parallel.make_mesh``) spanning every rank
+    of the process group, or ``"auto"`` (:func:`resolve_mesh`); every rank
+    constructs its Encoder and runs the same steps. ``device`` defaults to
+    ``cuda``, and with a mesh to this rank's device on it."""
 
     def __init__(self, settings: Optional[EncoderSettings] = None, log=print,
-                 device="cuda", mesh=None):
-        if mesh is not None:
-            raise ValueError("mesh: multi-device encoding is not ported to "
-                             "tiler_tpu_torch")
+                 device=None, mesh=None):
         settings = settings or EncoderSettings()
         if not isinstance(settings, EncoderSettings):
             # an equal dataclass (the JAX package's): keep the port's own
@@ -129,6 +162,9 @@ class Encoder:
             settings = EncoderSettings(**dataclasses.asdict(settings))
         self.settings = settings
         check_settings(self.settings)
+        self.mesh = resolve_mesh(mesh, device)
+        if device is None:
+            device = "cuda" if self.mesh is None else mesh_mod.rank_device(self.mesh.device_type)
         self.device = torch.device(device)
         self.state = EncodeState()
         self.log = log or (lambda *_: None)
@@ -189,7 +225,7 @@ class Encoder:
     # --- steps ------------------------------------------------------------
     def predict_motion(self):
         t0 = self._start()
-        predict_mod.predict_motion(self.state, self.settings, self.device)
+        predict_mod.predict_motion(self.state, self.settings, self.device, mesh=self.mesh)
         self._stamp("predict_motion", t0)
         self.log(f"{len(self.state.keyframes)} keyframes")
         return self
@@ -203,7 +239,8 @@ class Encoder:
 
     def prepare_palettes(self):
         t0 = self._start()
-        palettes_mod.prepare_palettes(self.state, self.settings, stats=self.step_stats)
+        palettes_mod.prepare_palettes(self.state, self.settings, stats=self.step_stats,
+                                      mesh=self.mesh)
         self._stamp("prepare_palettes", t0)
         inner = self.step_stats["two_opt_inner"]
         self.log(f"2-opt: {sum(inner)} inner iterations in {len(inner)} rounds {inner}")
@@ -217,7 +254,8 @@ class Encoder:
 
     def reconstruct(self):
         t0 = self._start()
-        reconstruct_mod.reconstruct(self.state, self.settings, stats=self.step_stats)
+        reconstruct_mod.reconstruct(self.state, self.settings, stats=self.step_stats,
+                                    mesh=self.mesh)
         self._stamp("reconstruct", t0)
         for kf in self.state.keyframes:
             self.log(f"KF {kf.start_frame:6d} PSNR-HVS: {self.state.kf_psnr[kf.index]:10.6f} (by tile)")
@@ -231,10 +269,22 @@ class Encoder:
         self.log(f"reindex: {len(self.state.corpus_pal_pixels)} final tiles")
         return self
 
+    @property
+    def writes(self) -> bool:
+        """Whether this rank writes files: without a mesh, or rank 0."""
+        return self.mesh is None or dist.get_rank() == 0
+
     def save(self, path: Optional[str] = None):
+        """Write the stream (rank 0 of a mesh; the others receive its
+        statistics)."""
         t0 = self._start()
-        self.stats = save_mod.save(state_to_numpy(self.state), self.settings,
-                                   path or self.settings.output_file_name)
+        stats = [None]
+        if self.writes:
+            stats[0] = save_mod.save(state_to_numpy(self.state), self.settings,
+                                     path or self.settings.output_file_name)
+        if self.mesh is not None:
+            dist.broadcast_object_list(stats, src=0)
+        self.stats = stats[0]
         self._stamp("save", t0)
         s = self.stats
         kbps = s.total_bytes / 1024.0 * 8.0 / max(1, s.frame_count) * self.state.fps
@@ -317,7 +367,14 @@ class Encoder:
     def save_checkpoint(self, path: str):
         """Pickle the numpy state + settings (the JAX package's format). A
         memmap field goes to ``<path>.<field>.npy`` instead (pickling would
-        read it into RAM); the live encoder keeps its memmap."""
+        read it into RAM); the live encoder keeps its memmap. On a mesh
+        rank 0 alone writes, and every rank returns once it has."""
+        if self.writes:
+            self._write_checkpoint(path)
+        if self.mesh is not None:
+            dist.barrier()
+
+    def _write_checkpoint(self, path: str):
         st = state_to_numpy(self.state)
         for fld in dataclasses.fields(st):
             v = getattr(st, fld.name)
@@ -329,12 +386,14 @@ class Encoder:
             pickle.dump({"state": st, "settings": self.settings}, f)
 
     @classmethod
-    def load_checkpoint(cls, path: str, log=print, device="cuda") -> "Encoder":
-        """Resume from a checkpoint written by either package. Unpickling
-        runs code named in the file: load only checkpoints you wrote."""
+    def load_checkpoint(cls, path: str, log=print, device=None, mesh=None) -> "Encoder":
+        """Resume from a checkpoint written by either package (``device``
+        and ``mesh`` as for the constructor; on a mesh every rank reads
+        the file). Unpickling runs code named in the file: load only
+        checkpoints you wrote."""
         with open(path, "rb") as f:
             d = _CheckpointUnpickler(f).load()
-        enc = cls(d["settings"], log=log, device=device)
+        enc = cls(d["settings"], log=log, device=device, mesh=mesh)
         st = d["state"]
         for fld in dataclasses.fields(st):
             v = getattr(st, fld.name)

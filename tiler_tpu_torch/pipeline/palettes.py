@@ -10,7 +10,8 @@ spread. The quantizer is a batched weighted k-means on the device
 (``color_quantizer="kmeans"``), or the host median cut (``"mediancut"``,
 ``cluster/mediancut.py``); the 2-opt (:func:`optimize_palettes`) then
 runs on the device after either (the JAX package fuses it into the
-k-means path's quantization). Random draws come from the
+k-means path's quantization). On a mesh with a "corpus" axis the first
+k-means is corpus-sharded. Random draws come from the
 port's threefry generator, so they are the JAX package's draws. The
 2-opt's inner iterations per round go to ``stats["two_opt_inner"]``.
 """
@@ -25,6 +26,7 @@ from ..config import EncoderSettings
 from ..models.state import EncodeState
 from ..ops import dct, prng
 from ..ops.color import posterize, rgb_to_hsv_bytes
+from ..parallel.kmeans import sharded_kmeans
 
 RED_MUL, GREEN_MUL, BLUE_MUL, LUMA_DIV = 299, 587, 114, 1000
 COLOR_CAP = 2048  # sampled member pixels per palette
@@ -41,14 +43,22 @@ def _corpus_features(state: EncodeState, settings: EncoderSettings, chunk=65536)
     ])
 
 
-def palettization(state: EncodeState, settings: EncoderSettings) -> EncodeState:
+def palettization(state: EncodeState, settings: EncoderSettings, mesh=None) -> EncodeState:
+    """Two levels of weighted k-means; with a mesh that has a "corpus"
+    axis the first runs corpus-sharded (``parallel/kmeans.py``), the
+    second, over its centroids, on each rank as without one."""
     feats = _corpus_features(state, settings)
     dev = feats.device
     P = settings.palette_count
     k1 = min(P * 8, len(feats))  # BICO coreset size
-    cents, assign1, _ = kmeans(
-        feats, k1, weights=torch.as_tensor(state.corpus_use.astype(np.float32), device=dev),
-        iters=settings.kmeans_iters, seed=settings.seed, init="sample")
+    weights = torch.as_tensor(state.corpus_use.astype(np.float32), device=dev)
+    if mesh is not None and "corpus" in mesh.mesh_dim_names:
+        cents, assign1, _ = sharded_kmeans(feats, k1, weights=weights,
+                                           iters=settings.kmeans_iters, seed=settings.seed,
+                                           mesh=mesh)
+    else:
+        cents, assign1, _ = kmeans(feats, k1, weights=weights, iters=settings.kmeans_iters,
+                                   seed=settings.seed, init="sample")
     k1 = int(cents.shape[0])
     if k1 > P and P > 1:
         _, assign2, _ = kmeans(cents, P, iters=settings.kmeans_iters,
@@ -270,7 +280,7 @@ def optimize_palettes(state: EncodeState, settings: EncoderSettings,
 
 
 def prepare_palettes(state: EncodeState, settings: EncoderSettings,
-                     stats: dict | None = None) -> EncodeState:
-    state = palettization(state, settings)
+                     stats: dict | None = None, mesh=None) -> EncodeState:
+    state = palettization(state, settings, mesh)
     state = quantization(state, settings)
     return optimize_palettes(state, settings, stats)

@@ -13,7 +13,11 @@ Counterpart of the default path of ``tiler_tpu/pipeline/reconstruct.py``:
     a cheap k=1 nearest tile. The cells run in rows of ``CELL_ROW``, the
     port's frame loop; under the IVF a short last row is padded with its
     last cell, as the JAX package pads it, since the IVF's capacity and
-    drops depend on the row.
+    drops depend on the row. With a mesh (the JAX package's mesh branch,
+    ``tiler_tpu/pipeline/reconstruct.py:766-820``) every cell instead
+    takes the exact float32 top-k of the corpus sharded over the "corpus"
+    axis (``parallel/knn.py``), in groups of frames, with no cheap cells,
+    no top-k kernel and no IVF, before the same re-rank.
   Phase B (sequential per keyframe): a frame loop with the framebuffer
     carried. Under ``phase_b_motion="reuse"`` (the default) each cell
     keeps its phase-A motion vector, whose error is evaluated exactly
@@ -52,6 +56,9 @@ from ..models.state import EncodeState
 from ..ops.color import rgb_to_yuv
 from ..ops.dct import DCT_MAT, DCT_WEIGHTS
 from ..ops.metrics import euclidean_to_psnr
+from ..parallel.collectives import axis_index
+from ..parallel.knn import TOPK_BUDGET, sharded_topk
+from ..parallel.mesh import mesh_shape
 from .ivf import build_ivf, ivf_search
 from .load import to_device
 from .motion import motion_search, tile_features_raster
@@ -60,7 +67,8 @@ TILE_W = 8
 K = 192
 TOL = 192.0  # cTileDCTSize comparison tolerance
 CELL_ROW = 8192  # cells per phase-A row
-TOPK_BUDGET = 4e9  # bytes of the [cells, T] f32 ranking matrix per pass
+MESH_GROUP_BYTES = 4e8  # the mesh branch's group of frames: features and EPU pairs
+PAD_FEATURE = 1e12  # the mesh branch pads the corpus with rows that never rank
 INT32_MAX = 2**31 - 1
 # elements of the quadratic tables' [tiles, S, S] products a chunk of tiles
 # (1 GiB of f32): 4,096 tiles at S = 256
@@ -379,9 +387,13 @@ def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str, cells: i
     ``ctx`` it searches every row (as the JAX package's ``ivf`` argument
     takes precedence), and counts the probes it dropped of the row's first
     ``cells`` cells (the rest pad the row); else ``kernel`` is "v2" (B2),
-    "v1" or "" (the exact top-k)."""
+    "v1" or "" (the exact top-k). With a mesh in ``ctx`` every row takes
+    the corpus-sharded exact top-k."""
     feats = _features(tiles.float(), ctx["int16"])
-    if ctx["ivf"] is not None:
+    if "mesh" in ctx:
+        idx, _ = sharded_topk(feats, ctx["ds_local"], kk, ctx["mesh"])
+        idx = idx.clamp_max(ctx["ds"].shape[0] - 1)  # the padding never ranks
+    elif ctx["ivf"] is not None:
         idx, _, dropped = ivf_search(feats, ctx["ivf"], kk, ctx["ivf_probes"])
         ctx["ivf_dropped"] += dropped[:cells].sum()
         ctx["ivf_slots"] += cells * min(ctx["ivf_probes"], ctx["ivf"].n_blocks)
@@ -408,13 +420,27 @@ def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str, cells: i
     return t, p, _exact_choice_err(feats, t, p, ctx["pp"], ctx["palettes"], ctx["int16"])
 
 
-def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
+def mesh_corpus_shard(ds, mesh):
+    """This rank's [Tpad/n, D] slice of the corpus features ds [T, D],
+    padded with PAD_FEATURE rows to a multiple Tpad of the "corpus" axis
+    size n (the JAX package's mesh branch)."""
+    T = ds.shape[0]
+    nshard = mesh_shape(mesh)["corpus"]
+    tloc = -(-T // nshard)
+    lo = axis_index(mesh, "corpus") * tloc
+    return torch.nn.functional.pad(ds, (0, 0, 0, tloc * nshard - T),
+                                   value=PAD_FEATURE)[lo:lo + tloc]
+
+
+def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict, mesh=None):
     """Phase A: per-cell best (tile, palette, err) as [F, N] tensors;
     cells skipped as perfectly predicted get the cheap k=1 choice. Writes
     the corpus size, the cells that went through a top-k kernel (B2 or
     v1), the IVF's block count (0 without one) and the share of the
     cells' probes that its capacity dropped (the padding of a short row
-    not counted) to ``stats``."""
+    not counted) to ``stats``. With ``mesh`` the corpus is sharded over
+    its "corpus" axis: every cell, in groups of frames, takes the exact
+    top-k, and ``knn_backend`` is not read."""
     F, N = state.n_frames, state.tilemap_size
     dev = state.corpus_pal_pixels.device
     S = settings.palette_size
@@ -450,7 +476,7 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
     # the kernels need a card and a corpus much wider than kk buckets, so
     # that the bucket top-2s cover the top-kk (the JAX package's gate)
     kernel = ""
-    if (dev.type == "cuda" and kk > 1 and T >= 2 * kk * TB
+    if (mesh is None and dev.type == "cuda" and kk > 1 and T >= 2 * kk * TB
             and settings.knn_backend in ("pallas", "pallas_v1")):
         kernel = "v1" if settings.knn_backend == "pallas_v1" else "v2"
     ctx = {
@@ -460,7 +486,10 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
         "kernel_cells": 0, "int16": int16, "ivf": None, "ivf_probes": settings.ivf_probes,
         "ivf_dropped": 0, "ivf_slots": 0,
     }
-    if settings.knn_backend == "ivf" and T >= settings.ivf_min_corpus:
+    if mesh is not None:
+        ctx["mesh"] = mesh
+        ctx["ds_local"] = mesh_corpus_shard(ds, mesh)
+    elif settings.knn_backend == "ivf" and T >= settings.ivf_min_corpus:
         ctx["ivf"] = build_ivf(ds)
     Tp = -(-T // TP_ALIGN) * TP_ALIGN
     if kernel == "v1":
@@ -481,7 +510,7 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
     # search
     tm = state.tilemap
     perfect_db = 10.0 * np.log10(255.0 * 255.0 / max(0.5, TOL / 192.0))
-    if (settings.knn_skip_perfect_pred and not settings.count_predicted_tiles
+    if (mesh is None and settings.knn_skip_perfect_pred and not settings.count_predicted_tiles
             and tm.predicted.any()):
         need = ~(tm.predicted & (tm.psnr >= perfect_db - 1e-6))
         for kf in state.keyframes:
@@ -497,10 +526,13 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict):
     kt = torch.zeros(F * N, dtype=torch.long, device=dev)
     kp = torch.zeros(F * N, dtype=torch.long, device=dev)
     ke = torch.full((F * N,), torch.inf, device=dev)
+    # the mesh branch's groups: the JAX package's frames a group
+    row_cells = (max(1, int(MESH_GROUP_BYTES / (N * (K * 4 + kk * kk * 4)))) * N
+                 if mesh is not None else CELL_ROW)
     for cells, args in ((sel, (kk, pal_k, epu, kernel)),
                         (sel_cheap, (1, 1, False, ""))):
-        for r0 in range(0, len(cells), CELL_ROW):
-            rows = cells[r0:r0 + CELL_ROW]
+        for r0 in range(0, len(cells), row_cells):
+            rows = cells[r0:r0 + row_cells]
             n = len(rows)
             if ctx["ivf"] is not None and n < CELL_ROW:
                 rows = np.concatenate([rows, np.full(CELL_ROW - n, rows[-1])])
@@ -582,14 +614,15 @@ def _phase_b_keyframe(frames, kt, kp, ke, hm, vm, pay, pax, pp, palettes,
 
 
 def reconstruct(state: EncodeState, settings: EncoderSettings,
-                stats: dict | None = None) -> EncodeState:
+                stats: dict | None = None, mesh=None) -> EncodeState:
+    """``mesh``: a DeviceMesh whose "corpus" axis shards phase A's corpus."""
     F, N = state.n_frames, state.tilemap_size
     th, tw = state.tilemap_h, state.tilemap_w
     tm = state.tilemap
     R = settings.motion_predict_radius
     stats = {} if stats is None else stats
     stats["phase_b_searches"] = 0
-    kt, kp, ke = _knn_phase(state, settings, stats)
+    kt, kp, ke = _knn_phase(state, settings, stats, mesh)
     dev = kt.device
     pp = state.corpus_pal_pixels
     palettes = torch.as_tensor(state.palettes_rgb, device=dev)
