@@ -43,7 +43,9 @@ Run from the repository root:  python3 chip_smoke.py
    tk_select 1, v1 57, blockify 32), and land within 0.1 dB PSNR-HVS and
    2% bytes of the encodes measured with the earlier FMA top-k kernels
    (REF_ENCODES). Each encode then runs once more for times without start-up
-   costs, and must write a stream of the same size. One more encode,
+   costs, and must write a stream of the same size; the default's second
+   stream must have the first's sha256 (determinism: else the first stage
+   whose state differs, array by array, is reported). One more encode,
    knn_backend="pallas_v1" with the passes field, isolates the field: the
    im2row path must land within 0.1 dB PSNR-HVS and 2% bytes of it, and
    no more than 0.1 dB below the default path (v1 and B2 rank
@@ -159,13 +161,27 @@ Run from the repository root:  python3 chip_smoke.py
      mesh_nccl1.
    The kernels line gives each kernel's launches on both under
    "mesh_launches".
+12. The palettization's fixed-order arithmetic (ops/ordered.py) on the
+   card against the CPU, bit for bit: the ordered corpus features of
+   116,097 random tiles (the default mode and wavelets, timed) and the
+   k-means segment sums (ordered).
+13. One more default encode with TILER_TPU_PROFILE set (profile): a
+   Chrome trace per step from torch.profiler; the dither trace must name
+   tk_select's kernel and the reconstruct trace B2's, each as many times
+   as its wrapper counted, and the stream must be the default's; prints
+   each step's kernel time from its trace beside Encoder.timings.
+14. cluster/kmodes.py on the card against the CPU on a seeded [50,000 x
+   64] uint8 set of 16 values, k = 64, max_iter = 10: the same modes,
+   labels and iteration count; both times print (kmodes).
 
 Prints per-stage times, then a JSON line of the kernels, the card line,
 and last {"ok": true, "device": {...}}. Exits nonzero on any failure.
 Takes about five minutes on one H100, the kernels' build included.
 """
+import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -186,15 +202,15 @@ FP32_OPS = 67e12  # outside the tensor cores; the table has no int32 rate,
 CORPUS_T = 116097
 CELL_ROW = 8192
 # the two 720p x 32 encodes of this script as measured on one NVIDIA H100
-# 80GB HBM3 (700 W) with the fp32-FMA top-k kernels that the tensor-core
-# ones replaced (PERF.md section 6): (PSNR-HVS dB, stream bytes). A
-# redesigned kernel ranks on the same keys up to f32 summation order, so
-# the encodes must stay within docs/DETERMINISM.md's 0.1 dB and 2% bytes.
-# mesh_nccl1: the mesh branch's encode (float32 rankings of every cell,
-# the float32 k-means), as first measured on the same card (700 W); a
-# change to the path must keep it within the same band.
-REF_ENCODES = {"default": (23.9470, 2271203), "im2row_v1": (24.2840, 2327635),
-               "mesh_nccl1": (25.2404, 2840558)}
+# 80GB HBM3 (700 W), with the palettization's features and segment sums
+# in the fixed order of ops/ordered.py (PERF.md section 6): (PSNR-HVS dB,
+# stream bytes). A redesigned kernel ranks on the same keys up to f32
+# summation order, so the encodes must stay within docs/DETERMINISM.md's
+# 0.1 dB and 2% bytes. mesh_nccl1: the mesh branch's encode (float32
+# rankings of every cell, the float32 k-means) on the same card; a change
+# to the path must keep it within the same band.
+REF_ENCODES = {"default": (23.8951, 2266737), "im2row_v1": (24.2291, 2324547),
+               "mesh_nccl1": (25.2430, 2835256)}
 # launches of each path's kernels in one such encode: 460,800 cells in
 # rows of 8,192, one dither, one motion search per frame
 EXPECT_LAUNCHES = {"default": {"tk_select": 1, "knn_bucket_top2": 57},
@@ -598,14 +614,16 @@ def check_blockify(torch, dev, mh=98, mw=168, depths=BLOCKIFY_K):
 
 
 def encode_path(name, settings, kernels, F=32, H=720, W=1280, min_corpus=65536,
-                device="cuda", again=True, after=None, mesh=None):
+                device="cuda", again=True, after=None, mesh=None, same_stream=False):
     """One encode of the clip through the Encoder on the card (on
     ``mesh`` when given), with every kernel's count set to 0 just before
     and read just after: each of ``kernels`` must have launched. Reads the
     peak of allocated device memory (reset just before). Checks the decode
     and frame 0, calls ``after(encoder, stream)`` (its dict joins the
     result), then (with ``again``) encodes once more for times without
-    start-up costs."""
+    start-up costs: the stream must have the same size, and with
+    ``same_stream`` the same sha256 (else the first stage whose state
+    differs is found and reported, first_differing_stage)."""
     import torch
 
     from tiler_tpu_torch.bitstream.gtm import GTMDecoder
@@ -686,9 +704,44 @@ def encode_path(name, settings, kernels, F=32, H=720, W=1280, min_corpus=65536,
     wall2 = time.monotonic() - t0
     print(f"[{name}] second encode: {wall2:.3f} s; stages "
           + " ".join(f"{k}={v:.3f}" for k, v in again.timings.items()), flush=True)
-    if again.stats.total_bytes != enc.stats.total_bytes:
-        raise AssertionError(f"the second {name} encode wrote a different stream size")
-    return {**out, "second_wall_s": wall2, "second_stage_s": again.timings}
+    first = hashlib.sha256(out["stream"]).hexdigest()
+    with open(stream, "rb") as f:
+        second = hashlib.sha256(f.read()).hexdigest()
+    sizes = (enc.stats.total_bytes, again.stats.total_bytes)
+    print(f"[{name}] the two encodes' streams: {sizes[0]} and {sizes[1]} bytes, sha256 "
+          f"{first[:16]} and {second[:16]} ({'equal' if first == second else 'DIFFERENT'})",
+          flush=True)
+    if sizes[0] != sizes[1] or (same_stream and first != second):
+        where = (first_differing_stage(settings, clip, device, mesh) if same_stream
+                 else "not looked for")
+        raise AssertionError(f"the two {name} encodes wrote different streams ({sizes[0]} and "
+                             f"{sizes[1]} bytes, sha256 {first[:16]} and {second[:16]}); "
+                             f"the first stage whose state differs: {where}")
+    return {**out, "second_wall_s": wall2, "second_stage_s": again.timings,
+            "sha256": first, "second_sha256": second}
+
+
+def first_differing_stage(settings, clip, device, mesh=None):
+    """Two more encodes of ``clip`` step by step, each state hashed array
+    by array (models/convert.state_array_digests) after the load and after
+    every step: the first step after which they differ, with the fields."""
+    from tiler_tpu_torch.models.convert import state_array_digests
+    from tiler_tpu_torch.pipeline.encoder import STEPS, Encoder
+
+    digests = []
+    for _ in range(2):
+        enc = Encoder(settings, device=device, log=None, mesh=mesh)
+        enc.load_frames(clip, 25.0)
+        run = [("load", state_array_digests(enc.state))]
+        for step in STEPS[1:-1]:
+            getattr(enc, step)()
+            run.append((step, state_array_digests(enc.state)))
+        digests.append(run)
+    for (step, a), (_, b) in zip(*digests):
+        fields = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        if fields:
+            return f"{step} ({', '.join(fields)})"
+    return "none: the step-by-step encodes agree, the difference is in save"
 
 
 def check_against_reference(name, run, corpus=CORPUS_T):
@@ -1253,6 +1306,124 @@ def mesh_nccl1(default):
     return run
 
 
+# the kernels the profile phase looks for in its traces: the step whose
+# trace holds them, and how a kernel event's name is recognized
+PROFILE_KERNELS = {
+    "tk_select": ("dither", lambda n: "tk_select_kernel" in n),
+    # B2 is knn_top2_wgmma<depth, false> (v1: true); demangled or mangled
+    "knn_bucket_top2": ("reconstruct",
+                        lambda n: "knn_top2_wgmma" in n and ("false" in n or "Lb0E" in n)),
+}
+
+
+def profile_encode(default):
+    """One default encode with TILER_TPU_PROFILE set: a Chrome trace per
+    step (utils/progress.trace_step, torch.profiler with CUDA activity).
+    The dither trace must name tk_select's kernel and the reconstruct
+    trace B2's, each as many times as its wrapper counted launches; the
+    stream must be the default's. Prints each step's kernel time from its
+    trace beside Encoder.timings."""
+    from tiler_tpu_torch.config import EncoderSettings
+    from tiler_tpu_torch.pipeline.encoder import STEPS
+
+    prof_dir = os.path.join(STREAM_DIR, "profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    os.environ["TILER_TPU_PROFILE"] = prof_dir
+    try:
+        run = encode_path("profile", EncoderSettings(), ("tk_select", "knn_bucket_top2"),
+                          again=False)
+    finally:
+        del os.environ["TILER_TPU_PROFILE"]
+    kernel_ms, in_trace = {}, {}
+    for step in STEPS[1:-1]:
+        with open(os.path.join(prof_dir, f"{step}.json")) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+        kernel_ms[step] = sum(e.get("dur", 0) for e in events) / 1e3
+        for kname, (kstep, match) in PROFILE_KERNELS.items():
+            if step == kstep:
+                in_trace[kname] = sum(1 for e in events if match(e.get("name", "")))
+    shutil.rmtree(prof_dir)
+    print("[profile] step: kernel time in its trace (ms) / Encoder.timings (s): "
+          + " ".join(f"{k}={kernel_ms[k]:.3f}/{run['stage_s'][k]:.3f}" for k in kernel_ms),
+          flush=True)
+    print(f"[profile] launches in the traces {in_trace}, by the wrappers' counts "
+          f"{ {k: run['launches'][k] for k in in_trace} }", flush=True)
+    for kname, n in in_trace.items():
+        if n == 0 or n != run["launches"][kname]:
+            raise AssertionError(f"the {PROFILE_KERNELS[kname][0]} trace shows {n} launches "
+                                 f"of {kname}, its wrapper counted {run['launches'][kname]}")
+    if run["stream"] != default["stream"]:
+        raise AssertionError("the profiled encode wrote another stream than the default's")
+    return {"kernel_ms": kernel_ms, "stage_s": run["stage_s"], "trace_launches": in_trace}
+
+
+def ordered_on_card(T=CORPUS_T, seed=0):
+    """The palettization's fixed-order arithmetic (ops/ordered.py) on the
+    card against the CPU, bit for bit: the corpus features at the encode's
+    corpus size (the default mode and wavelets), and the k-means segment
+    sum of the first k-means' shape ([131,072, 193] rows into 512) and of
+    single values. Times the features on the card."""
+    import torch
+
+    from tiler_tpu_torch.ops import dct, ordered
+
+    rng = np.random.default_rng(seed)
+    tiles = torch.from_numpy(rng.integers(0, 256, (T, 8, 8, 3), dtype=np.uint8)).float()
+    gtiles = tiles.cuda()
+    for mode in ("weighted_spe_dct", "wavelets"):
+        want = dct.tile_features(tiles, mode, use_lab=True)
+        got = dct.tile_features(gtiles, mode, use_lab=True).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"the ordered {mode} features differ between the card and "
+                                 f"the CPU at {int((got != want).sum())} entries")
+    ms = cuda_ms(lambda: dct.tile_features(gtiles, "weighted_spe_dct", use_lab=True), 3)
+    vals = torch.from_numpy((rng.standard_normal((131072, 193)) * 1000).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 512, 131072))
+    for v in (vals, vals[:, 0].contiguous()):
+        want = ordered.segment_sum(v, ids, 512)
+        got = ordered.segment_sum(v.cuda(), ids.cuda(), 512).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"segment_sum of {list(v.shape)} differs between the card "
+                                 "and the CPU")
+    print(f"[ordered] features of {T} tiles (weighted_spe_dct, wavelets) and segment sums "
+          f"([131072, 193] and [131072] into 512): card and CPU bit-identical; the features "
+          f"take {ms:.3f} ms on the card", flush=True)
+
+
+def kmodes_on_card(n=50000, d=64, values=16, k=64, max_iter=10, seed=0):
+    """cluster/kmodes.py on the card against its own run on the CPU: a
+    seeded [n, d] uint8 set of ``values`` values (k clusters' modes with
+    half the attributes redrawn), k modes, max_iter iterations. Modes,
+    labels and the iteration count must be identical. Prints both times."""
+    import torch
+
+    from tiler_tpu_torch.cluster.kmodes import kmodes
+
+    rng = np.random.default_rng(seed)
+    centers = rng.integers(0, values, (k, d))
+    x = centers[rng.integers(0, k, n)]
+    x = np.where(rng.random((n, d)) < 0.5, rng.integers(0, values, (n, d)), x)
+    x = torch.from_numpy(x.astype(np.uint8))
+    t0 = time.monotonic()
+    want = kmodes(x, k, max_iter)
+    cpu_s = time.monotonic() - t0
+    gx = x.cuda()
+    kmodes(gx, k, 1)  # warm-up: allocator and kernel start-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = kmodes(gx, k, max_iter)
+    torch.cuda.synchronize()
+    card_s = time.monotonic() - t0
+    if not (got[2] == want[2] and torch.equal(got[0].cpu(), want[0])
+            and torch.equal(got[1].cpu(), want[1])):
+        raise AssertionError("kmodes on the card differs from its run on the CPU")
+    print(f"[kmodes] [{n}, {d}] uint8 of {values} values, k={k}, max_iter={max_iter}: "
+          f"{got[2]} iterations, modes and labels equal on the card and the CPU; card "
+          f"{card_s * 1e3:.1f} ms, CPU {cpu_s * 1e3:.1f} ms ({torch.get_num_threads()} "
+          f"threads) on {card_line()}", flush=True)
+    return {"card_s": card_s, "cpu_s": cpu_s, "iterations": got[2]}
+
+
 def _gloo_rank(rank: int, port: int, stream: str, queue):
     """One rank of the gloo group on the one card: the (2, 2)-mesh encode
     of the clip at the reference defaults (rank 0 writes ``stream``), with
@@ -1424,7 +1595,9 @@ def main() -> int:
               "knn_bucket_top2_v1": check_knn_v1(torch, dev),
               "blockify_field": check_blockify(torch, dev)}
     torch.cuda.empty_cache()
-    default = encode_path("default", EncoderSettings(), ("tk_select", "knn_bucket_top2"))
+    # determinism: the two default encodes must write the same stream
+    default = encode_path("default", EncoderSettings(), ("tk_select", "knn_bucket_top2"),
+                          same_stream=True)
     torch.cuda.empty_cache()
     im2row_v1 = encode_path(
         "im2row_v1", EncoderSettings(motion_field="im2row", knn_backend="pallas_v1"),
@@ -1515,6 +1688,9 @@ def main() -> int:
     small_clip_agreement(motion_field="im2row", motion_rank_dims=12)
     yliluoma2_dither_agreement()
     y4m_device_ingest()
+    ordered_on_card()
+    profile_encode(default)
+    kmodes_on_card()
 
     # each kernel's launches: from the encode of the path that it serves
     # (tk_select serves both; its count is the default path's)

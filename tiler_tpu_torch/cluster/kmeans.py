@@ -6,14 +6,27 @@ Exact 1-NN assignment by distance matmuls, k-means++ or weighted-sample
 weighted Lloyd with bf16 assignment ranking and the fixed-point early
 exit: once an iteration reproduces its input centroids exactly, every
 further one is the identity, so stopping is bit-identical to running on.
-The segment sums use ``index_put_(accumulate=True)``, which sums in a
-fixed order on both the CPU and CUDA.
+The segment sums add rows in order on every device
+(``ops/ordered.segment_sum``). On the CPU the squared norms are summed in
+the JAX package's order (``ops/ordered.row_sum``, XLA's windows of 32)
+and the products through ``@`` equal the JAX package's bit for bit
+(held by ``tests/test_torch_parity_gap.py``). On a card the norms are
+one reduction launch (the ordered sum is 36 launches, and k-means++
+seeding takes a norm a centroid: ~37k launches at P = 1,024) and cuBLAS
+sums the products: fixed orders, other than the CPU's, so the card's
+result is its own run after run.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops import prng
+from ..ops.ordered import row_sum, segment_sum
+
+
+def sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of x * x over the last axis (see the module docstring)."""
+    return row_sum(x * x) if x.device.type == "cpu" else (x * x).sum(dim=-1)
 
 
 def log_f32(x: torch.Tensor) -> torch.Tensor:
@@ -29,11 +42,11 @@ def _log_weights(weights: torch.Tensor) -> torch.Tensor:
 def assign_nearest(points: torch.Tensor, centroids: torch.Tensor,
                    chunk: int = 16384):
     """Exact 1-NN: argmin_c |x - c|^2 -> (assign int32 [N], d2 [N])."""
-    c2 = (centroids * centroids).sum(dim=1)
+    c2 = sq_norms(centroids)
     assign, dist = [], []
     for i in range(0, points.shape[0], chunk):
         x = points[i:i + chunk]
-        d2 = (x * x).sum(dim=1, keepdim=True) - 2.0 * (x @ centroids.T) + c2
+        d2 = sq_norms(x)[:, None] - 2.0 * (x @ centroids.T) + c2
         a = torch.argmin(d2, dim=1)
         assign.append(a.to(torch.int32))
         dist.append(d2.gather(1, a[:, None])[:, 0])
@@ -53,15 +66,19 @@ def kmeans_pp_init(points: torch.Tensor, weights: torch.Tensor, k: int, key):
         min_d2 = torch.full((n,), torch.inf, dtype=points.dtype, device=points.device)
         for i in range(k - 1):
             dd = points - cents[-1]
-            min_d2 = torch.minimum(min_d2, (dd * dd).sum(dim=1))
+            min_d2 = torch.minimum(min_d2, sq_norms(dd))
             logits = logw + log_f32(torch.clamp_min(min_d2, 1e-30))
             cents.append(points[torch.argmax(g[i] + logits)])
     return torch.stack(cents)
 
 
-def _lloyd(points, weights, cents, chunk: int):
+def _lloyd(points, weights, cents, chunk: int, x2=None):
+    """One weighted Lloyd step; ``x2`` [N] = sq_norms(points), computed
+    here when not given."""
     k, d = cents.shape
-    c2 = (cents * cents).sum(dim=1)
+    if x2 is None:
+        x2 = sq_norms(points)
+    c2 = sq_norms(cents)
     cb = cents.to(torch.bfloat16).float()
     sums = torch.zeros(k, d, dtype=points.dtype, device=points.device)
     cnts = torch.zeros(k, dtype=points.dtype, device=points.device)
@@ -69,11 +86,12 @@ def _lloyd(points, weights, cents, chunk: int):
         x = points[i:i + chunk]
         wi = weights[i:i + chunk]
         # assignment ranking in bf16 (exact products, f32 sums)
-        d2 = ((x * x).sum(dim=1, keepdim=True)
-              - 2.0 * (x.to(torch.bfloat16).float() @ cb.T) + c2)
+        d2 = x2[i:i + chunk, None] - 2.0 * (x.to(torch.bfloat16).float() @ cb.T) + c2
         a = torch.argmin(d2, dim=1)
-        sums = sums + torch.zeros_like(sums).index_put_((a,), x * wi[:, None], accumulate=True)
-        cnts = cnts + torch.zeros_like(cnts).index_put_((a,), wi, accumulate=True)
+        # one segment sum of [x * w, w]: the chunk's sums and counts
+        part = segment_sum(torch.cat([x * wi[:, None], wi[:, None]], dim=1), a, k)
+        sums = sums + part[:, :d]
+        cnts = cnts + part[:, d]
     return torch.where(cnts[:, None] > 0, sums / torch.clamp_min(cnts[:, None], 1e-30), cents)
 
 
@@ -102,8 +120,9 @@ def kmeans(points, k: int, *, weights=None, iters: int = 30, seed: int = 0,
         g = prng.gumbel(key, (npad,), device=dev)
         order = torch.sort(_log_weights(weights) + g, descending=True, stable=True)
         cents = points[order.indices[:k]]
+    x2 = sq_norms(points)
     for _ in range(iters):
-        new = _lloyd(points, weights, cents, chunk)
+        new = _lloyd(points, weights, cents, chunk, x2)
         done = torch.equal(new, cents)
         cents = new
         if done:

@@ -81,3 +81,28 @@ def state_digest(state: EncodeState) -> str:
               st.corpus_pal_initial, st.corpus_use):
         h.update(np.ascontiguousarray(a).tobytes())
     return h.hexdigest()
+
+
+def state_array_digests(state: EncodeState) -> dict:
+    """sha256 (16 hex digits) of every array of ``state_to_numpy(state)``,
+    the tilemap's and the keyframes' included, by field name: two encodes
+    that should agree are compared field by field after each step."""
+    st = state_to_numpy(state)
+    out = {}
+
+    def visit(name, v):
+        if isinstance(v, np.ndarray):
+            out[name] = hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()[:16]
+        elif hasattr(v, "__dataclass_fields__"):
+            for f in v.__dataclass_fields__:
+                visit(f"{name}.{f}", getattr(v, f))
+        elif isinstance(v, (list, tuple)):
+            for i, item in enumerate(v):
+                visit(f"{name}[{i}]", item)
+        elif isinstance(v, (int, float, str, bool)):
+            out[name] = repr(v)
+
+    for f in st.__dataclass_fields__:
+        if not f.startswith("_"):
+            visit(f, getattr(st, f))
+    return out

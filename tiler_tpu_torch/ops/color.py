@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ordered import fma32, powf
+
 RED_MUL = 299
 GREEN_MUL = 587
 BLUE_MUL = 114
@@ -86,6 +88,34 @@ def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
     a = 500 * (fx - fy)
     b = 200 * (fy - fz)
     return torch.stack([L, a, b], dim=-1)
+
+
+# the constants of the JAX package's compiled rgb_to_lab: its divisions
+# by constants folded into products by float32 reciprocals
+_INV_255 = float.fromhex("0x1.010102p-8")  # f32(1 / 255)
+_INV_1055 = float.fromhex("0x1.e54edep-1")  # f32(1 / f32(1.055))
+_INV_255_1292 = float.fromhex("0x1.3e4568p-12")  # f32(1 / 255 / 12.92)
+_F16_116 = float(np.float32(16 / 116))
+
+
+def rgb_to_lab_ordered(rgb: torch.Tensor) -> torch.Tensor:
+    """:func:`rgb_to_lab` of byte-valued RGB, computed as the JAX
+    package's CPU build computes it (``ops/ordered.py``): divisions by
+    constants as products by their float32 reciprocals, glibc's powf,
+    the XYZ product with its third column as an FMA chain and the other
+    two summed in order, and the FMAs of ``7.787 x + 16/116`` and
+    ``116 fy - 16``. The same bits on the CPU and on CUDA."""
+    m = rgb * _INV_255
+    lin = torch.where(m > 0.04045, powf((m + 0.055) * _INV_1055, 2.4), rgb * _INV_255_1292)
+    M = torch.as_tensor(_XYZ_M_D50.T, dtype=torch.float32, device=rgb.device)
+    l0, l1, l2 = lin[..., 0], lin[..., 1], lin[..., 2]
+    xyz = torch.stack([(l0 * M[0, 0] + l1 * M[1, 0]) + l2 * M[2, 0],
+                       (l0 * M[0, 1] + l1 * M[1, 1]) + l2 * M[2, 1],
+                       fma32(l2, M[2, 2], fma32(l1, M[1, 2], l0 * M[0, 2]))], dim=-1)
+    f = torch.where(xyz > 0.008856, powf(torch.clamp_min(xyz, 1e-30), 1 / 3),
+                    fma32(xyz, float(np.float32(7.787)), _F16_116))
+    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+    return torch.stack([fma32(fy, 116.0, -16.0), (fx - fy) * 500, (fy - fz) * 200], dim=-1)
 
 
 def lab_to_rgb(lab: torch.Tensor, clamp: bool = True) -> torch.Tensor:

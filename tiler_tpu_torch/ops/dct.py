@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .color import lab_to_rgb, rgb_to_lab, rgb_to_yuv, yuv_to_rgb
+from .color import lab_to_rgb, rgb_to_lab_ordered, rgb_to_yuv, yuv_to_rgb
+from .ordered import dot8, fma32
 
 TILE_W = 8
 TILE_DCT_SIZE = 192
@@ -95,9 +96,32 @@ MODES = ("dct", "weighted_dct", "wavelets", "spe_dct", "weighted_spe_dct")
 def tile_features(tiles_rgb: torch.Tensor, mode: str = "weighted_dct",
                   use_lab: bool = False) -> torch.Tensor:
     """Psycho-visual features of RGB tiles [..., 8, 8, 3] (float, 0..255)
-    -> [..., 192] in the reference's snake layout."""
-    cpn = rgb_to_lab(tiles_rgb) if use_lab else rgb_to_yuv(tiles_rgb)
-    return cpn_features(cpn, mode)
+    -> [..., 192] in the reference's snake layout. In LAB (the
+    palettization's features) the tiles are byte-valued and the features
+    are computed in float32 as the JAX package's CPU build computes them
+    (``ops/ordered.py``): the LAB of :func:`~.color.rgb_to_lab_ordered`,
+    and each DCT as two products over K = 8, first over y, then over x,
+    summed as XLA's CPU dot sums them. The same bits on the CPU and on
+    CUDA."""
+    if not use_lab:
+        return cpn_features(rgb_to_yuv(tiles_rgb), mode)
+    if mode not in MODES:
+        raise ValueError(f"dithering_mode={mode!r}: the psy-vis modes are {MODES}")
+    lead = tiles_rgb.shape[:-3]
+    cpn = rgb_to_lab_ordered(tiles_rgb.reshape(-1, 8, 8, 3).float())
+    n = cpn.shape[0]
+    inv = np.concatenate([SNAKE_INV, SNAKE_INV + 64, SNAKE_INV + 128])
+    inv = torch.as_tensor(inv, dtype=torch.long, device=cpn.device)
+    if mode == "wavelets":
+        z = torch.movedim(_wavelet2_ordered(cpn), -1, -3)  # [n, c, v, u]
+    else:
+        Dt = torch.as_tensor((DCT_MAT_SPE if "spe" in mode else DCT_MAT).T,
+                             dtype=torch.float32, device=cpn.device)
+        z = dot8(cpn.permute(0, 2, 3, 1).reshape(-1, 8), Dt).reshape(n, 8, 3, 8)  # [n, x, c, v]
+        z = dot8(z.permute(0, 2, 3, 1).reshape(-1, 8), Dt).reshape(n, 3, 8, 8)  # [n, c, v, u]
+        if mode.startswith("weighted"):
+            z = z * torch.as_tensor(DCT_WEIGHTS, dtype=torch.float32, device=z.device)
+    return z.reshape(n, TILE_DCT_SIZE)[:, inv].reshape(*lead, TILE_DCT_SIZE)
 
 
 def cpn_features(cpn: torch.Tensor, mode: str = "weighted_dct") -> torch.Tensor:
@@ -160,6 +184,25 @@ def _wavelet2(cpn: torch.Tensor) -> torch.Tensor:
         cols = torch.cat([(a + b), (a - b)], dim=-3) * _ISQRT2
         x = x.clone()
         x[..., :size, :size, :] = cols
+    return x
+
+
+def _wavelet2_ordered(cpn: torch.Tensor) -> torch.Tensor:
+    """:func:`_wavelet2` as the JAX package's CPU build computes it: each
+    product by 1/sqrt(2) that feeds an add or a subtraction is fused
+    into it (an FMA on the first operand), in both levels."""
+    c = float(np.float32(_ISQRT2))
+
+    def cols(rows):  # (a + b) c, (a - b) c of row pairs, each a pending product
+        p, q = rows[..., 0::2, :, :], rows[..., 1::2, :, :]
+        return torch.cat([fma32(p, c, q * c), fma32(p, c, -(q * c))], dim=-3)
+
+    a, b = cpn[..., :, 0::2, :], cpn[..., :, 1::2, :]
+    u = cols(torch.cat([a + b, a - b], dim=-2))  # level 1, before its last product
+    x = u * c
+    ua, xb = u[..., :4, 0:4:2, :], x[..., :4, 1:4:2, :]
+    x = x.clone()
+    x[..., :4, :4, :] = cols(torch.cat([fma32(ua, c, xb), fma32(ua, c, -xb)], dim=-2)) * c
     return x
 
 

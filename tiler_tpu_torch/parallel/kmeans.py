@@ -5,9 +5,9 @@ axis in rank order (``collectives.psum``).
 
 The assignment ranks float32 distances at the precision the JAX
 package's reference computes on the CPU (not the bf16 ranking of
-``cluster/kmeans._lloyd``); the segment sums use
-``index_put_(accumulate=True)``, which sums in a fixed order on both the
-CPU and CUDA. Every rank then holds the same centroids bit for bit, so
+``cluster/kmeans._lloyd``); the segment sums add each rank's rows in row
+order (``ops/ordered.segment_sum``), at any thread count and on either
+device. Every rank then holds the same centroids bit for bit, so
 the fixed-point early exit takes the same trip count on every rank and
 the collectives inside the loop stay in step.
 """
@@ -17,6 +17,7 @@ import torch
 
 from ..cluster.kmeans import _log_weights
 from ..ops import prng
+from ..ops.ordered import segment_sum
 from .collectives import all_gather_stack, axis_index, psum
 from .knn import sq_dists
 from .mesh import mesh_shape
@@ -44,9 +45,7 @@ def sharded_lloyd_step(points, weights, cents, mesh, data_axis: str = "corpus"):
     centroid), the same on every rank."""
     k, d = cents.shape
     a, _ = _nearest(points, cents)
-    part = torch.zeros(k, d + 1, dtype=points.dtype, device=points.device)
-    part.index_put_((a,), torch.cat([points * weights[:, None], weights[:, None]], dim=1),
-                    accumulate=True)
+    part = segment_sum(torch.cat([points * weights[:, None], weights[:, None]], dim=1), a, k)
     part = psum(part, mesh, data_axis)
     sums, cnts = part[:, :d], part[:, d:]
     return torch.where(cnts > 0, sums / torch.clamp_min(cnts, 1e-30), cents)

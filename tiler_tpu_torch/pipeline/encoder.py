@@ -15,7 +15,10 @@ written with the port's own classes; :meth:`Encoder.load_checkpoint` also
 reads the JAX package's checkpoints by mapping its class names onto the
 port's copies (:class:`_CheckpointUnpickler`), without importing it. A
 disk-spilled (memmap) field is written to a sidecar ``<ckpt>.<field>.npy``
-and mapped again on load, in both packages' format.
+and mapped again on load, in both packages' format. With
+``TILER_TPU_PROFILE=dir`` set, each of the six steps from predict_motion
+to reindex runs under ``torch.profiler`` and leaves a Chrome trace in
+``dir/<step>.json`` (``utils/progress.trace_step``).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from ..models import state as state_mod
 from ..models.convert import state_from_numpy, state_to_numpy
 from ..models.state import EncodeState
 from ..parallel import mesh as mesh_mod
+from ..utils.progress import trace_step
 from . import dither as dither_mod
 from . import load as load_mod
 from . import palettes as palettes_mod
@@ -225,22 +229,25 @@ class Encoder:
     # --- steps ------------------------------------------------------------
     def predict_motion(self):
         t0 = self._start()
-        predict_mod.predict_motion(self.state, self.settings, self.device, mesh=self.mesh)
+        with trace_step("predict_motion", self.device):
+            predict_mod.predict_motion(self.state, self.settings, self.device, mesh=self.mesh)
         self._stamp("predict_motion", t0)
         self.log(f"{len(self.state.keyframes)} keyframes")
         return self
 
     def reduce(self):
         t0 = self._start()
-        reduce_mod.reduce_tiles(self.state, self.settings, self.device)
+        with trace_step("reduce", self.device):
+            reduce_mod.reduce_tiles(self.state, self.settings, self.device)
         self._stamp("reduce", t0)
         self.log(f"corpus: {len(self.state.corpus_rgb)} tiles")
         return self
 
     def prepare_palettes(self):
         t0 = self._start()
-        palettes_mod.prepare_palettes(self.state, self.settings, stats=self.step_stats,
-                                      mesh=self.mesh)
+        with trace_step("prepare_palettes", self.device):
+            palettes_mod.prepare_palettes(self.state, self.settings, stats=self.step_stats,
+                                          mesh=self.mesh)
         self._stamp("prepare_palettes", t0)
         inner = self.step_stats["two_opt_inner"]
         self.log(f"2-opt: {sum(inner)} inner iterations in {len(inner)} rounds {inner}")
@@ -248,14 +255,16 @@ class Encoder:
 
     def dither(self):
         t0 = self._start()
-        dither_mod.dither(self.state, self.settings)
+        with trace_step("dither", self.device):
+            dither_mod.dither(self.state, self.settings)
         self._stamp("dither", t0)
         return self
 
     def reconstruct(self):
         t0 = self._start()
-        reconstruct_mod.reconstruct(self.state, self.settings, stats=self.step_stats,
-                                    mesh=self.mesh)
+        with trace_step("reconstruct", self.device):
+            reconstruct_mod.reconstruct(self.state, self.settings, stats=self.step_stats,
+                                        mesh=self.mesh)
         self._stamp("reconstruct", t0)
         for kf in self.state.keyframes:
             self.log(f"KF {kf.start_frame:6d} PSNR-HVS: {self.state.kf_psnr[kf.index]:10.6f} (by tile)")
@@ -264,7 +273,8 @@ class Encoder:
 
     def reindex(self):
         t0 = self._start()
-        reindex_mod.reindex(self.state, self.settings)
+        with trace_step("reindex", self.device):
+            reindex_mod.reindex(self.state, self.settings)
         self._stamp("reindex", t0)
         self.log(f"reindex: {len(self.state.corpus_pal_pixels)} final tiles")
         return self

@@ -26,6 +26,7 @@ from ..config import EncoderSettings
 from ..models.state import EncodeState
 from ..ops import dct, prng
 from ..ops.color import posterize, rgb_to_hsv_bytes
+from ..ops.ordered import fma32
 from ..parallel.kmeans import sharded_kmeans
 
 RED_MUL, GREEN_MUL, BLUE_MUL, LUMA_DIV = 299, 587, 114, 1000
@@ -34,11 +35,12 @@ MAX_ROUNDS = 16  # outer rounds of the 2-opt
 
 
 def _corpus_features(state: EncodeState, settings: EncoderSettings, chunk=65536):
-    """Per-tile dither-mode features in LAB."""
+    """Per-tile dither-mode features in LAB, in the JAX package's float
+    order (``dct.tile_features``): the k-means they feed turns a
+    last-bit difference into other palettes."""
     corpus = state.corpus_rgb
     return torch.cat([
-        dct.tile_features(corpus[i:i + chunk].float(), mode=settings.dithering_mode,
-                          use_lab=True)
+        dct.tile_features(corpus[i:i + chunk], mode=settings.dithering_mode, use_lab=True)
         for i in range(0, len(corpus), chunk)
     ])
 
@@ -106,6 +108,12 @@ def _sample_member_pixels(corpus_rgb, pal_initial, P: int, cap: int, key):
     return cols, valid.float(), ntiles * 64
 
 
+def _sq_norm3(x):
+    """|x|^2 over the last axis of 3, as the JAX package's compiled sum
+    of squares: x0 * x0, then two FMAs."""
+    return fma32(x[..., 2], x[..., 2], fma32(x[..., 1], x[..., 1], x[..., 0] * x[..., 0]))
+
+
 def _kmeans_small_batch(colors, weights, seeds, k: int, iters: int):
     """All P per-palette k-means at once: colors [P, n, 3], weights [P, n]
     (0/1), seeds [P] ints. Weighted-Gumbel sample init, lowest-index
@@ -120,10 +128,10 @@ def _kmeans_small_batch(colors, weights, seeds, k: int, iters: int):
     cents = colors.gather(1, idx[:, :, None].expand(P, k, 3))
 
     colsT = colors.transpose(1, 2)  # [P, 3, n]
-    x2 = (colsT * colsT).sum(dim=1)  # [P, n]
+    x2 = _sq_norm3(colors)  # [P, n]
     karange = torch.arange(k, device=colors.device)[None, :, None]
     for _ in range(iters):
-        c2 = (cents * cents).sum(dim=-1)
+        c2 = _sq_norm3(cents)
         d2 = x2[:, None, :] - 2.0 * torch.bmm(cents, colsT) + c2[:, :, None]
         a = torch.argmin(d2, dim=1)  # [P, n], ties -> lowest k
         oh = (a[:, None, :] == karange).float() * weights[:, None, :]
