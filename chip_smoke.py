@@ -171,12 +171,20 @@ Run from the repository root:  python3 chip_smoke.py
    (the JAX package's CPU float order; no limit on the card, which keeps
    cuBLAS's bf16 product), the card's search time, and its field in
    plain float32 beside the field in XLA's order.
-14. One more default encode with TILER_TPU_PROFILE set (profile): a
+14. Reconstruct's float order (reconstruct_order): the ordered per-cell
+   code (the cell and corpus features of a 720p frame, their exact
+   errors, prng.gumbel) on the card against the CPU, bit for bit, each
+   timed; then a band of frames 0-1 of the 720p clip (its top 16 tile
+   rows at full width, the moving square's) through the dither on the
+   card, reconstructed on the card and on the CPU from that state: prints
+   how many of frame 1's EPU winners and phase-B flags the card's own
+   arithmetic moves off the CPU's XLA order (no limit).
+15. One more default encode with TILER_TPU_PROFILE set (profile): a
    Chrome trace per step from torch.profiler; the dither trace must name
    tk_select's kernel and the reconstruct trace B2's, each as many times
    as its wrapper counted, and the stream must be the default's; prints
    each step's kernel time from its trace beside Encoder.timings.
-15. cluster/kmodes.py on the card against the CPU on a seeded [50,000 x
+16. cluster/kmodes.py on the card against the CPU on a seeded [50,000 x
    64] uint8 set of 16 values, k = 64, max_iter = 10: the same modes,
    labels and iteration count; both times print (kmodes).
 
@@ -1435,6 +1443,84 @@ def motion_order(H=720, W=1280, radius=32):
     return {"differ": differ, "search_ms": search_ms, "field_ms": field_ms}
 
 
+def reconstruct_order(H=720, W=1280, band=128, seed=0, device="cuda"):
+    """Reconstruct's and the k-means seeding's ordered per-cell code on the
+    card against the same calls on the CPU, bit for bit, each timed on the
+    card: the features of a 720p frame's 14,400 tiles in XLA's CPU order
+    (as a program fuses the luma, and as the corpus's are taken, unfused),
+    their exact errors against random (tile, palette) picks of a 4,096-tile
+    corpus, and prng.gumbel (1,024 keys of 2,048 draws, the palette
+    seeding's shape). Then the top ``band`` rows of the first two frames
+    of the 720p clip, at full width, brought through the dither on the
+    card, reconstruct once on the card (its own arithmetic) and once on
+    the CPU (the JAX package's CPU order) from the same state: prints how
+    many of frame 1's EPU winners and phase-B flags differ (no limit: the
+    card keeps its own arithmetic) and the CPU's time."""
+    import copy
+
+    import torch
+
+    from tiler_tpu_torch.config import EncoderSettings
+    from tiler_tpu_torch.models.convert import state_from_numpy, state_to_numpy
+    from tiler_tpu_torch.ops import prng
+    from tiler_tpu_torch.pipeline import reconstruct as rc
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.utils.clips import synthetic_clip
+
+    def same(a, b, what):
+        a, b = a.cpu(), b.cpu()
+        if not torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b):
+            raise AssertionError(f"reconstruct_order: {what} differ between the card and the "
+                                 f"CPU at {int((a != b).sum())} entries")
+
+    clip = synthetic_clip(2, H, W)
+    tiles = torch.from_numpy(clip[1]).reshape(H // 8, 8, W // 8, 8, 3).transpose(1, 2)
+    tiles = tiles.reshape(-1, 8, 8, 3).float()
+    gtiles = tiles.to(device)
+    ms = {}
+    for name, luma in (("cell features", True), ("corpus features", False)):
+        for a, b in zip(rc._features(gtiles, False, True, luma), rc._features(tiles, False, True, luma)):
+            same(a, b, name)
+        ms[name] = cuda_ms(lambda luma=luma: rc._features(gtiles, False, True, luma), 3)
+    rng = np.random.default_rng(seed)
+    T, P, S, N = 4096, 64, 16, len(tiles)
+    cpu = [torch.from_numpy(v) for v in (rng.integers(0, T, N), rng.integers(0, P, N),
+                                         rng.integers(0, S, (T, 8, 8), dtype=np.uint8),
+                                         rng.integers(0, 256, (P, S, 3), dtype=np.uint8))]
+    z, feats = rc._features(tiles, False, True)
+    gargs = [v.to(device) for v in (feats, *cpu)]
+    gz = z.to(device)
+    same(rc._exact_choice_err(*gargs, False, gz), rc._exact_choice_err(feats, *cpu, False, z),
+         "exact errors")
+    ms["exact errors"] = cuda_ms(lambda: rc._exact_choice_err(*gargs, False, gz), 3)
+    keys = prng.split(prng.prng_key(seed), 1024)
+    same(prng.gumbel(keys.to(device), (2048,), device=device), prng.gumbel(keys, (2048,)),
+         "Gumbel draws")
+    ms["gumbel"] = cuda_ms(lambda: prng.gumbel(keys.to(device), (2048,), device=device), 3)
+
+    settings = EncoderSettings()
+    enc = Encoder(settings, log=None, device=device)
+    enc.load_frames(np.ascontiguousarray(clip[:, :band]), 25.0)
+    enc.predict_motion().reduce().prepare_palettes().dither()
+    snap = state_to_numpy(copy.copy(enc.state))
+    card = rc.reconstruct(state_from_numpy(snap, device), settings).tilemap
+    t0 = time.monotonic()
+    host = rc.reconstruct(state_from_numpy(snap, "cpu"), settings).tilemap
+    cpu_s = time.monotonic() - t0
+    both = ~card.predicted[1] & ~host.predicted[1]
+    winners = int((both & ((card.tile_idx[1] != host.tile_idx[1])
+                           | (card.pal_idx[1] != host.pal_idx[1]))).sum())
+    flags = int((card.predicted[1] != host.predicted[1]).sum())
+    print(f"[reconstruct_order] card = CPU bit for bit: the features of {N} tiles (cells, "
+          f"corpus), their exact errors, {keys.shape[0]}x2048 Gumbel draws; card ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f". Frame 1 of {band}x{W} (T={len(snap.corpus_rgb)}): {winners} of "
+          f"{int(both.sum())} EPU winners and {flags} of {both.size} phase-B flags differ "
+          f"between the card's arithmetic and the CPU's XLA order (the CPU's reconstruct {cpu_s:.1f} s)", flush=True)
+    return {"ms": ms, "winners": winners, "flags": flags, "cpu_s": cpu_s}
+
+
 def kmodes_on_card(n=50000, d=64, values=16, k=64, max_iter=10, seed=0):
     """cluster/kmodes.py on the card against its own run on the CPU: a
     seeded [n, d] uint8 set of ``values`` values (k clusters' modes with
@@ -1735,6 +1821,7 @@ def main() -> int:
     y4m_device_ingest()
     ordered_on_card()
     motion_order()
+    reconstruct_order()
     profile_encode(default)
     kmodes_on_card()
 

@@ -80,6 +80,20 @@ before), the corpus size T and the stream. A corpus that overflows the
 int32 (tile, palette) packing raises in reconstruct: the error is printed
 and the run goes on; FRAMES then sets a shorter clip.
 
+    python3 scripts/torch_profile.py --order-cost
+
+instead times, on the 1280x720x32 clip, the code that the CPU computes
+in the JAX package's float order and the card in its own, each in both
+forms on the card, in turns by CUDA events: load's mean LAB and
+correlations over its chunks (rgb_to_lab's mean and pearson against
+tile_mean_lab_ordered and pearson_ordered), and the EPU's quadratic
+table of the default encode's corpus (_quad_rows's bmm against the JAX
+package's CPU order, one FMA chain over v by ops/ordered.fma_dot, 2,048
+tiles at a time). It prints how many correlations and table entries the
+two forms give otherwise, whether the keyframes they decide differ,
+whether the ordered load gives the CPU's bits on the card, and the
+default encode's load and reconstruct seconds beside them.
+
     python3 scripts/torch_profile.py --mesh-gap
 
 instead takes the mesh encode apart against the meshless ones, on the
@@ -248,6 +262,105 @@ def knn_breakdown(N=8192, T=116097, reps=20, rounds=2):
                 times.append(f"{name} {a.elapsed_time(b) / reps:.4f} ms")
             print(f"[knn breakdown, round {rnd}] {kname} at {N} x {T}: " + ", ".join(times),
                   flush=True)
+
+
+def _turns_ms(fns, rounds=3):
+    """{name: [ms of each round]} of the calls in ``fns``, in turns (the
+    order reversed every other round), each timed by CUDA events after a
+    warm-up call."""
+    times = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fns[name]()
+            b.record()
+            torch.cuda.synchronize()
+            times[name].append(a.elapsed_time(b))
+    return times
+
+
+def order_cost(clip, device="cuda"):
+    import numpy as np
+
+    from tiler_tpu_torch.ops.color import rgb_to_lab, tile_mean_lab_ordered
+    from tiler_tpu_torch.ops.dct import DCT_WEIGHTS
+    from tiler_tpu_torch.ops.metrics import pearson, pearson_ordered
+    from tiler_tpu_torch.ops.ordered import fma_dot
+    from tiler_tpu_torch.pipeline import load as ld
+    from tiler_tpu_torch.pipeline import reconstruct as rc
+
+    settings = EncoderSettings()
+    F, H, W, _ = clip.shape
+    step = ld._frames_per_chunk(H, W)
+    frames = torch.from_numpy(clip).to(device)
+
+    def tiles(fr):  # _load_chunk's tiles, one frame of overlap a chunk
+        t = fr.reshape(len(fr), H // 8, 8, W // 8, 8, 3).permute(0, 1, 3, 2, 4, 5)
+        return t.reshape(len(fr), -1, 8, 8, 3).float()
+
+    chunks = [tiles(frames[max(0, s - 1):s + step]) for s in range(0, F, step)]
+
+    def corr(ordered, chunks=chunks):
+        out = []
+        for i, tf in enumerate(chunks):
+            m = (tile_mean_lab_ordered(tf) if ordered
+                 else rgb_to_lab(tf).mean(dim=(2, 3))).reshape(len(tf), -1)
+            c = (pearson_ordered if ordered else pearson)(m[:-1], m[1:])
+            out.append(torch.cat([torch.ones(1, device=c.device), c]) if i == 0 else c)
+        return torch.cat(out)
+
+    times = _turns_ms({"plain": lambda: corr(False), "ordered": lambda: corr(True)})
+    print(f"[order cost] load's mean LAB and correlations, {F} frames in {len(chunks)} "
+          "chunks, ms a load in turns: "
+          + "; ".join(f"{k} " + ", ".join(f"{v:.3f}" for v in vs) for k, vs in times.items()),
+          flush=True)
+    cp, co = corr(False).cpu(), corr(True).cpu()
+    cc = corr(True, [t.cpu() for t in chunks])
+    kf = [ld._detect_keyframes(F, c.numpy(), 25.0, settings, None)[0] for c in (cp, co)]
+    print(f"[order cost] correlations: {int((cp != co).sum())} of {F} differ between the "
+          f"forms on the card (max |diff| {float((cp - co).abs().max()):.3e}); keyframes "
+          f"{'equal' if np.array_equal(*kf) else 'differ'} ({int(kf[0].sum())}, "
+          f"{int(kf[1].sum())}); the ordered form on the card = CPU bit for bit: "
+          f"{torch.equal(co.view(torch.int32), cc.view(torch.int32))}", flush=True)
+    del chunks, frames
+
+    enc = Encoder(settings, device=device, log=None)
+    enc.run_all(clip, fps=25.0, out_path=os.path.join(ROOT, "build", "order_cost.gtm"))
+    enc = Encoder(settings, device=device, log=None)
+    enc.load_frames(clip, 25.0).predict_motion().reduce().prepare_palettes().dither()
+    pp, S = enc.state.corpus_pal_pixels, settings.palette_size
+    enc.reconstruct()
+    print(f"[order cost] the default encode's stages: "
+          + " ".join(f"{k}={v:.3f}" for k, v in enc.timings.items()), flush=True)
+    T = pp.shape[0]
+    w = torch.as_tensor(DCT_WEIGHTS, dtype=torch.float32, device=device)
+    wf2 = (w * w).permute(1, 2, 0).reshape(64, 3)
+    tri = rc._triangle(S, device)
+    chunk = min(rc.IDCT_CHUNK, rc._quad_chunk(S))
+    gs = [rc._indicator_dcts(pp[i:i + chunk], S).to(torch.bfloat16).float()
+          for i in range(0, T, chunk)]
+
+    def chain(g, tri_i, tri_j, dbl):
+        return torch.stack([fma_dot((g * wf2[:, c][None, :, None])[:, :, tri_i].transpose(1, 2),
+                                    g[:, :, tri_j].transpose(1, 2)) * dbl for c in range(3)],
+                           dim=1).reshape(g.shape[0], -1)
+
+    def quad(ordered):
+        if ordered:
+            return [chain(t, *tri) for g in gs for t in g.split(2048)]
+        return [rc._quad_rows(g, wf2, *tri) for g in gs]
+
+    times = _turns_ms({"plain": lambda: quad(False), "ordered": lambda: quad(True)}, rounds=2)
+    print(f"[order cost] the EPU's quadratic table, T = {T}, S = {S}, ms in turns: "
+          + "; ".join(f"{k} " + ", ".join(f"{v:.3f}" for v in vs) for k, vs in times.items()),
+          flush=True)
+    qp, qo = torch.cat(quad(False)), torch.cat(quad(True))
+    print(f"[order cost] quadratic table: {int((qp != qo).sum())} of {qp.numel()} entries "
+          "differ between the forms on the card", flush=True)
 
 
 def encode_times(clip, reps=3):
@@ -522,6 +635,9 @@ def main() -> int:
         return 0
     if "--encode-times" in sys.argv[1:]:
         encode_times(clip)
+        return 0
+    if "--order-cost" in sys.argv[1:]:
+        order_cost(clip)
         return 0
     if "--mesh-gap" in sys.argv[1:]:
         mesh_gap(clip)

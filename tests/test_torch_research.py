@@ -5,12 +5,16 @@ the reconstruction in every frame but a keyframe's first) and
 target-PSNR reduce.
 
 Each stage runs from the JAX package's snapshot before it, both packages
-with the same settings (docs/DETERMINISM.md's gate end to end). Motion
-vectors that differ count as agreeing where they tie (ROADMAP C5): the
-two exact errors are equal up to the rounding of the features.
+with the same settings (docs/DETERMINISM.md's gate end to end). On a host
+whose XLA computes as the port's CPU path assumes, every vector, error
+and stream equals the JAX package's (but the im2row re-search, which the
+JAX package's phase B does not run). Elsewhere motion vectors that differ
+count as agreeing where they tie (ROADMAP C5): the two exact errors are
+equal up to the rounding of the features.
 """
 import copy
 import dataclasses
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +53,23 @@ def _psnr_rgb(path, clip):
     return 10 * np.log10(255 * 255 / max(mse, 1e-9))
 
 
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _sha256(path):
+    return hashlib.sha256(open(path, "rb").read()).hexdigest()
+
+
+@pytest.fixture(scope="module")
+def xla_rec_bits():
+    """Whether the host's XLA computes as the port's CPU encode assumes
+    (tests/test_torch_reconstruct_order.py's probes)."""
+    from test_torch_reconstruct_order import reconstruct_order_skip_reason
+    return reconstruct_order_skip_reason() is None
+
+
 @pytest.fixture(scope="module")
 def jax_research(tmp_path_factory):
     """The JAX encode with research and int16: its state after dither
@@ -63,9 +84,10 @@ def jax_research(tmp_path_factory):
 
 
 @pytest.mark.parametrize("field", ["passes", "im2row"])
-def test_motion_search_int16_with_windows(field):
+def test_motion_search_int16_with_windows(field, xla_rec_bits):
     """Frame 3 against a float32 stand-in for the reconstruction of frame
-    2, radius 8 (the scroll of 3, 5 pixels a frame lies inside)."""
+    2, radius 8 (the scroll of 3, 5 pixels a frame lies inside): equal on
+    an XLA-order host, else within the rounding ties."""
     rng = np.random.default_rng(0)
     back = (CLIP[2] + rng.normal(0, 3, CLIP[2].shape)).astype(np.float32)
     with jax.enable_x64(False):
@@ -75,6 +97,8 @@ def test_motion_search_int16_with_windows(field):
     got = [a.numpy() for a in t_motion.motion_search(
         torch.from_numpy(CLIP[3]), torch.from_numpy(back), 8, field_impl=field, int16=True,
         return_windows=True)]
+    if xla_rec_bits:
+        assert all(np.array_equal(_bits(g), _bits(w)) for g, w in zip(got, want))
     same = (got[0] == want[0]) & (got[1] == want[1])
     tie = _rounding_tie(got[2], want[2])
     assert (same | tie).mean() >= 0.99, (same.mean(), (same | tie).mean())
@@ -85,10 +109,11 @@ def test_motion_search_int16_with_windows(field):
     assert np.array_equal(got[3][flat], want[3][flat])
 
 
-def test_phase_a_int16_against_the_snapshot(jax_research):
+def test_phase_a_int16_against_the_snapshot(jax_research, xla_rec_bits):
     """Phase A from the JAX state after dither, int16 on both sides: the
-    same (tile, palette) winners, and where they agree the same exact
-    error up to feature rounding."""
+    same (tile, palette) winners and exact error bits on an XLA-order
+    host; elsewhere >= 99% of the winners, and where they agree the same
+    exact error up to feature rounding."""
     snap = jax_research[0]
     settings = EncoderSettings(**RESEARCH)
     with jax.enable_x64(False):
@@ -98,19 +123,23 @@ def test_phase_a_int16_against_the_snapshot(jax_research):
     t, p, e = (a.numpy() for a in t_reconstruct._knn_phase(
         state_from_numpy(snap, "cpu"), settings, stats))
     assert stats["knn_kernel_cells"] == 0  # no top-k kernel on the CPU
+    if xla_rec_bits:
+        assert np.array_equal(t, jt) and np.array_equal(p, jp)
+        assert np.array_equal(_bits(e), _bits(je))
     same = (t == jt) & (p == jp)
     assert same.mean() >= 0.99, same.mean()
     assert _rounding_tie(e, je)[same].all()
 
 
 @pytest.mark.parametrize("field", ["passes", "im2row"])
-def test_phase_b_research_one_keyframe(jax_research, field):
+def test_phase_b_research_one_keyframe(jax_research, field, xla_rec_bits):
     """One keyframe through phase B in research mode in both packages, on
     the same phase-A results: the re-searched vectors, the prediction
-    decisions and the cells' errors. The port's re-search takes the
-    settings' window field (im2row runs blockify_field inside reconstruct);
-    the JAX package's phase B always builds the passes field, which ranks
-    the same up to float32 summation order."""
+    decisions and the cells' errors, bit for bit with the passes field on
+    an XLA-order host. The port's re-search takes the settings' window
+    field (im2row runs blockify_field inside reconstruct); the JAX
+    package's phase B always builds the passes field, which ranks the same
+    up to float32 summation order."""
     snap = jax_research[0]
     settings = EncoderSettings(**RESEARCH)
     st = state_from_numpy(snap, "cpu")
@@ -133,6 +162,8 @@ def test_phase_b_research_one_keyframe(jax_research, field):
         torch.from_numpy(pal).long(), 4, th, tw, "research", True, field, stats)
     got = [a.numpy() for a in got]
     assert stats["phase_b_searches"] == len(CLIP) - 1
+    if xla_rec_bits and field == "passes":
+        assert all(np.array_equal(_bits(g), _bits(w)) for g, w in zip(got, want))
     same = (got[0] == want[0]) & (got[1] == want[1])
     tie = _rounding_tie(got[3], want[3])
     assert (same | tie).mean() >= 0.99, (same.mean(), (same | tie).mean())
@@ -141,20 +172,24 @@ def test_phase_b_research_one_keyframe(jax_research, field):
     assert got[2][1:].any()  # cells after the first frame predict
 
 
-def test_research_int16_run_all_within_the_determinism_gate(jax_research, tmp_path):
+def test_research_int16_run_all_within_the_determinism_gate(jax_research, tmp_path,
+                                                           xla_rec_bits):
     _, jpath, jbytes = jax_research
     out = tmp_path / "torch.gtm"
     enc = Encoder(EncoderSettings(**RESEARCH), log=None, device="cpu")
     enc.run_all(CLIP, fps=FPS, out_path=str(out))
     assert enc.step_stats["phase_b_searches"] == len(CLIP) - len(enc.state.keyframes)
+    if xla_rec_bits:
+        assert _sha256(out) == _sha256(jpath)
     assert abs(_psnr_rgb(out, CLIP) - _psnr_rgb(jpath, CLIP)) <= 0.1
     assert abs(enc.stats.total_bytes - jbytes) <= 0.02 * jbytes
 
 
 @pytest.mark.parametrize("target", [30.0])
-def test_target_psnr_run_all_within_the_determinism_gate(target, tmp_path):
+def test_target_psnr_run_all_within_the_determinism_gate(target, tmp_path, xla_rec_bits):
     """GlobalTilingUseTargetPSNR: reduce thresholds the motion PSNRs at the
-    target itself (tilingencoder.pas:1915-1918) in both packages."""
+    target itself (tilingencoder.pas:1915-1918) in both packages; the same
+    stream on an XLA-order host."""
     settings = dataclasses.replace(EncoderSettings(**SMALL), global_tiling_use_target_psnr=True,
                                    global_tiling_target_psnr=target)
     clip = CLIP[:4]
@@ -170,5 +205,7 @@ def test_target_psnr_run_all_within_the_determinism_gate(target, tmp_path):
             enc.run_all(clip, fps=FPS, out_path=str(out))
         results[name] = (_psnr_rgb(out, clip), enc.stats.total_bytes,
                          len(enc.state.corpus_pal_pixels))
+    if xla_rec_bits:
+        assert _sha256(tmp_path / "torch.gtm") == _sha256(tmp_path / "jax.gtm")
     assert abs(results["torch"][0] - results["jax"][0]) <= 0.1, results
     assert abs(results["torch"][1] - results["jax"][1]) <= 0.02 * results["jax"][1], results

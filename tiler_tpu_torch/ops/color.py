@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ordered import fma32, fma_sum, powf
+from .ordered import fma32, fma_sum, fold_lanes, powf
 
 RED_MUL = 299
 GREEN_MUL = 587
@@ -113,13 +113,8 @@ _INV_255_1292 = float.fromhex("0x1.3e4568p-12")  # f32(1 / 255 / 12.92)
 _F16_116 = float(np.float32(16 / 116))
 
 
-def rgb_to_lab_ordered(rgb: torch.Tensor) -> torch.Tensor:
-    """:func:`rgb_to_lab` of byte-valued RGB, computed as the JAX
-    package's CPU build computes it (``ops/ordered.py``): divisions by
-    constants as products by their float32 reciprocals, glibc's powf,
-    the XYZ product with its third column as an FMA chain and the other
-    two summed in order, and the FMAs of ``7.787 x + 16/116`` and
-    ``116 fy - 16``. The same bits on the CPU and on CUDA."""
+def _lab_f_ordered(rgb: torch.Tensor):
+    """(fx, fy, fz) of :func:`rgb_to_lab_ordered`."""
     m = rgb * _INV_255
     lin = torch.where(m > 0.04045, powf((m + 0.055) * _INV_1055, 2.4), rgb * _INV_255_1292)
     M = torch.as_tensor(_XYZ_M_D50.T, dtype=torch.float32, device=rgb.device)
@@ -129,8 +124,35 @@ def rgb_to_lab_ordered(rgb: torch.Tensor) -> torch.Tensor:
                        fma32(l2, M[2, 2], fma32(l1, M[1, 2], l0 * M[0, 2]))], dim=-1)
     f = torch.where(xyz > 0.008856, powf(torch.clamp_min(xyz, 1e-30), 1 / 3),
                     fma32(xyz, float(np.float32(7.787)), _F16_116))
-    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+    return f[..., 0], f[..., 1], f[..., 2]
+
+
+def rgb_to_lab_ordered(rgb: torch.Tensor) -> torch.Tensor:
+    """:func:`rgb_to_lab` of byte-valued RGB, computed as the JAX
+    package's CPU build computes it (``ops/ordered.py``): divisions by
+    constants as products by their float32 reciprocals, glibc's powf,
+    the XYZ product with its third column as an FMA chain and the other
+    two summed in order, and the FMAs of ``7.787 x + 16/116`` and
+    ``116 fy - 16``. The same bits on the CPU and on CUDA."""
+    fx, fy, fz = _lab_f_ordered(rgb)
     return torch.stack([fma32(fy, 116.0, -16.0), (fx - fy) * 500, (fy - fz) * 200], dim=-1)
+
+
+def tile_mean_lab_ordered(tiles_rgb: torch.Tensor) -> torch.Tensor:
+    """The mean CIE L*a*b* of byte-valued tiles [..., 8, 8, 3] -> [..., 3],
+    as the JAX package's compiled load computes it on the CPU: the LAB of
+    :func:`rgb_to_lab_ordered` summed in eight lanes, one a tile row, each
+    along its row (the a and b channels' products by 500 and 200 fused
+    into the sum), the lanes then folded (``ops/ordered.fold_lanes``), times 1/64.
+    The same bits on the CPU and on CUDA."""
+    fx, fy, fz = _lab_f_ordered(tiles_rgb.float())
+    L, da, db = fma32(fy, 116.0, -16.0), fx - fy, fy - fz
+    sl, sa, sb = L[..., 0], da[..., 0] * 500, db[..., 0] * 200  # [..., 8 rows]
+    for x in range(1, 8):
+        sl = sl + L[..., x]
+        sa = fma32(da[..., x], 500.0, sa)
+        sb = fma32(db[..., x], 200.0, sb)
+    return torch.stack([fold_lanes(sl), fold_lanes(sa), fold_lanes(sb)], dim=-1) * 0.015625
 
 
 def lab_to_rgb(lab: torch.Tensor, clamp: bool = True) -> torch.Tensor:

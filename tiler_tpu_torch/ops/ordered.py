@@ -1,15 +1,16 @@
-"""Float arithmetic in a fixed order, for the palettization and the
-motion search.
+"""Float arithmetic in a fixed order, for the palettization, the motion
+search, reconstruct and the load's correlations.
 
 The palettization's k-means is chaotic: one feature that differs by a
 unit in the last place can move a point to another centroid, and a few
 iterations later most of the palettes differ. The motion search ranks
 its candidates on bf16-rounded distances, so one feature a unit off can
-pick another window. So the port computes both in one fixed order, and
-in the order in which the JAX package's CPU build evaluates them (XLA on
-x86-64; read from its optimized HLO and its machine code, and held bit
-for bit by ``tests/test_torch_parity_gap.py`` and
-``tests/test_torch_motion_order.py``):
+pick another window, and reconstruct's top-k and EPU rank the same way.
+So the port computes them in one fixed order, and in the order in which
+the JAX package's CPU build evaluates them (XLA on x86-64; read from its
+optimized HLO and its machine code, and held bit for bit by
+``tests/test_torch_parity_gap.py``, ``tests/test_torch_motion_order.py``
+and ``tests/test_torch_reconstruct_order.py``):
 
 - :func:`row_sum`: XLA's tree reduction. A row longer than 32 is summed
   in windows of 32 (zero-padded, the padding split between both ends),
@@ -20,11 +21,19 @@ for bit by ``tests/test_torch_parity_gap.py`` and
   ``jax.ops.segment_sum`` and ``np.add.at`` add.
 - :func:`fma32`: a float32 multiply-add rounded once, as the FMA that
   XLA's code generator emits for ``a * b + c``.
-- :func:`dot8`: a product over K = 8 as XLA's CPU dot computes it: four
-  FMA accumulators over k mod 4, then (0 + 1) + (2 + 3).
-- :func:`dot_fma`: a product over any K as XLA's CPU dot library
-  (Eigen) computes it for the motion search's K = 64 basis product: one
-  FMA chain over k from left to right.
+- :func:`lanes4_sum`: a small or batched float32 product whose left
+  operand is contracted over its last axis, as XLA's CPU dot computes it
+  (reconstruct's EPU pair errors, and :func:`dot8` for K = 8): four FMA
+  accumulators over k mod 4, then (0 + 1) + (2 + 3).
+- :func:`bf16_pairs_sum`: a batched bf16 product as XLA's CPU dot
+  computes it on a CPU with AVX-512 BF16 (the EPU's per-candidate
+  products): the exact products added in the order 1, 0, 3, 2, ...
+- :func:`fold_lanes`: the fold of a vector's lanes into one sum (the
+  load's mean LAB and Pearson sums): halves added until one is left.
+- :func:`fma_dot`, :func:`dot_fma`: a product over any K as XLA's CPU
+  dot library (Eigen) computes it for the K = 64 basis product of the
+  motion search's and reconstruct's features: one FMA chain over k from
+  left to right.
 - :func:`fma_sum`: a fused sum of products ``a0 b0 + a1 b1 + ...`` as
   XLA's code generator contracts it: the second product rounded, the
   first fused with it, then each further product fused in order.
@@ -38,11 +47,12 @@ Each function is a chain of elementwise float32, float64 and integer
 tensor operations, each rounded once, so it gives the same bits on the
 CPU and on CUDA, at any thread count.
 
-The order was read from one build: jax 0.9.0 on x86-64 with AVX-512 and
-glibc 2.36. Which products XLA's code generator fuses into FMAs depends
-on how it vectorizes, so another ISA, another jax or another libm can
-give the reference other bits; the bit-equality tests probe the host's
-XLA first and skip with the reason when it compiles otherwise.
+The order was read from one build: jax 0.9.0 on x86-64 with AVX-512 (and
+AVX-512 BF16, which its batched bf16 dots run on) and glibc 2.36. Which
+products XLA's code generator fuses into FMAs depends on how it
+vectorizes, so another ISA, another jax or another libm can give the
+reference other bits; the bit-equality tests probe the host's XLA first
+and skip with the reason when it computes otherwise.
 
 On a card these functions give one fixed order, not the reference's
 bits for the whole palettization: there the k-means sums its squared
@@ -55,6 +65,13 @@ import torch
 
 WINDOW = 32  # XLA's CPU tree-reduction window
 WARP = 32
+U32 = 2.0 ** -24  # float32's unit roundoff
+
+
+def gamma(k: int) -> float:
+    """gamma_k = k u / (1 - k u): a k-term float32 sum of products, in any
+    order, lies within gamma_k sum |a_i b_i| of the exact sum."""
+    return k * U32 / (1 - k * U32)
 
 
 def seq_sum(x: torch.Tensor) -> torch.Tensor:
@@ -158,24 +175,28 @@ def _as64(v):
     return v.double() if torch.is_tensor(v) else v
 
 
-def fma_chain(acc: torch.Tensor, pairs) -> torch.Tensor:
+def fma_chain(acc: torch.Tensor, pairs, normal: bool = False) -> torch.Tensor:
     """acc = fma(a, b, acc) for each (a, b) of ``pairs`` in order, each
     rounded once to float32 (tensors broadcast against acc; ``b`` may be
     a Python float32 value). On the CPU one float64 multiply-add a step;
-    the few elements whose float64 sum may round to float32 otherwise
-    (:func:`_double_rounds`) run the whole chain again by exact sums."""
+    the few elements whose float64 sum lands on a float32 midpoint, or
+    below float32's normal range, at some step run the whole chain again
+    by exact sums. ``normal``: the caller knows that no nonzero sum can
+    fall below the normal range (:func:`_coarse`), so that check is
+    skipped."""
     if acc.device.type != "cpu":
         for a, b in pairs:
             acc = fma32(a, b, acc)
         return acc
     acc0, acc64, odd = acc, acc.double(), None
     for a, b in pairs:
-        p = _as64(a) * _as64(b)
-        s = acc64 + p
-        acc = s.float()
-        o = _double_rounds(s, p, acc64)
-        odd = o if odd is None else odd | o
-        acc64 = acc.double()
+        s = acc64 + _as64(a) * _as64(b)
+        o = (s.view(torch.int64) & _LOW29) == _HALF_ULP32
+        if not normal:
+            o |= (s.abs() < 2.0 ** -125) & (s != 0)
+        odd = o if odd is None else odd.logical_or_(o) if odd.shape == o.shape else odd | o
+        acc64 = s.float().double()
+    acc = acc64.float()
     if odd is not None and bool(odd.any()):
         idx = odd.nonzero(as_tuple=True)
 
@@ -189,6 +210,14 @@ def fma_chain(acc: torch.Tensor, pairs) -> torch.Tensor:
     return acc
 
 
+def _coarse(*ts: torch.Tensor) -> bool:
+    """Whether every nonzero value of the float32 tensors ts is at least
+    2^-40 in magnitude: then each product of two of them is a multiple of
+    2^-126, and so is every sum of such products and of their float32
+    roundings, so no nonzero sum falls below float32's normal range."""
+    return all(bool((torch.where(t == 0, 1.0, t.abs()) >= 2.0 ** -40).all()) for t in ts)
+
+
 def fma_sum(pairs) -> torch.Tensor:
     """``a0 * b0 + a1 * b1 + ...`` over (a, b) pairs of float32 tensors
     (or Python float32 values as b), as XLA contracts the chain: fma(a0,
@@ -197,22 +226,62 @@ def fma_sum(pairs) -> torch.Tensor:
     return fma_chain(a1 * b1, [(a0, b0)] + list(pairs[2:]))
 
 
+def fma_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """sum over the last axis of x * y (float32, broadcast against each
+    other) as one FMA chain over k from left to right: acc = x0 y0, then
+    acc = fma(xk, yk, acc)."""
+    xd, yd = x.double(), y.double()
+    return fma_chain(x[..., 0] * y[..., 0], [(xd[..., k], yd[..., k]) for k in range(1, x.shape[-1])],
+                     normal=x.device.type == "cpu" and _coarse(x, y))
+
+
 def dot_fma(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w [K, C] in float32, as one FMA chain over k from
-    left to right: acc = x0 w0, then acc = fma(xk, wk, acc)."""
-    xd, wd = x.double(), w.double()
-    return fma_chain(x[..., 0, None] * w[0],
-                     [(xd[..., k, None], wd[k]) for k in range(1, x.shape[-1])])
+    left to right (:func:`fma_dot`)."""
+    return fma_dot(x[..., None, :], w.T)
+
+
+def lanes4_sum(x: torch.Tensor, y) -> torch.Tensor:
+    """sum over the last axis of x * y (float32, broadcast against each
+    other) as XLA's CPU code sums a small or batched float32 dot: four
+    accumulators over k mod 4, each an FMA chain from its first product,
+    then (acc0 + acc1) + (acc2 + acc3). K a multiple of 4."""
+    K = x.shape[-1]
+    if K % 4:
+        raise ValueError(f"lanes4_sum needs a multiple of 4 terms, got {K}")
+    x4, y4 = x.unflatten(-1, (K // 4, 4)), y.unflatten(-1, (K // 4, 4))
+    x64, y64 = x4.double(), y4.double()  # the four lanes side by side
+    acc = fma_chain(x4[..., 0, :] * y4[..., 0, :],
+                    [(x64[..., k, :], y64[..., k, :]) for k in range(1, K // 4)])
+    return (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+
+
+def fold_lanes(v: torch.Tensor) -> torch.Tensor:
+    """The sum of the vector lanes on the last axis (a power of 2) as XLA's
+    CPU code folds them: lanes i + (i + n/2), then the same on the half,
+    down to one."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
 
 
 def dot8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [R, 8] @ b [8, C] in float32, as XLA's CPU dot sums it."""
-    acc = []
-    for lane in range(4):
-        first = a[:, lane, None] * b[lane]
-        acc.append(fma32(a[:, lane + 4, None].expand_as(first), b[lane + 4].expand_as(first),
-                         first))
-    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+    return lanes4_sum(a[:, None, :], b.T)
+
+
+def bf16_pairs_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """sum over the last axis of x * y for bf16 values held in float32
+    (exact products), as XLA's CPU batched bf16 dot sums it with the
+    AVX-512 BF16 dot-product instruction: one float32 sum from +0 over
+    the pairs of k, each pair's odd term added before its even one, every
+    addition rounded. K even."""
+    p = x * y
+    acc = torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device)
+    for k in range(0, p.shape[-1], 2):
+        acc = (acc + p[..., k + 1]) + p[..., k]
+    return acc
 
 
 # glibc's powf tables: log2 by 16 intervals (1/c, log2 c) and a degree-5

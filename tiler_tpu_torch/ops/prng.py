@@ -6,9 +6,9 @@ init, Gumbel top-k sampling, the member-tile shuffle). A
 palettes, and every stage after them, agree only in distribution. This
 module is the port's explicit generator: the same threefry2x32 hash, the
 same counter layout (``jax_threefry_partitionable=True``, the jax 0.9
-default) and the same bits-to-float transforms. Keys, splits, uniform
-and randint are bit-identical to jax.random; Gumbel draws agree to
-float32 rounding (see :func:`gumbel`).
+default) and the same bits-to-float transforms. Keys, splits, uniform,
+randint and the Gumbel draws are bit-identical to jax.random on XLA's
+CPU build (see :func:`gumbel`).
 
 Torch has no usable uint32 arithmetic, so every word is held in int64 and
 masked to 32 bits after each add and shift. A key is a Python pair of
@@ -19,6 +19,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .ordered import log32
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -109,12 +111,12 @@ def gumbel(key, shape, device=None) -> torch.Tensor:
     """jax.random.gumbel(key, shape, float32) in its default "low" mode.
     ``key`` may be an int64 tensor [B, 2] of keys (one draw each).
 
-    The logs are taken in float64 and rounded once, which gives the same
-    float32 on the CPU and on the card. XLA's float32 log on the CPU is
-    one unit in the last place off on some inputs, so these draws agree
-    with jax.random.gumbel to float32 rounding, not bit for bit."""
+    Both logs are XLA's CPU float32 log (``ops/ordered.log32``), which is
+    not correctly rounded: the draws equal jax.random.gumbel's bit for bit
+    (u lies in [tiny, 1 - 2^-23], so -log(u) in [2^-23, 87.4], both inside the
+    range log32 was swept over), and give the same bits on the card."""
     u = uniform(key, shape, _F32_TINY, 1.0, device)
-    return (-torch.log(-torch.log(u.double()).float().double())).float()
+    return -log32(-log32(u))
 
 
 def categorical(key, logits: torch.Tensor) -> torch.Tensor:

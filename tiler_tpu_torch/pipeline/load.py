@@ -21,8 +21,8 @@ import torch
 from ..config import EncoderSettings
 from ..io.video import PlanarClip
 from ..models.state import EncodeState, KeyFrameInfo, TileMapSoA
-from ..ops.color import rgb_to_lab
-from ..ops.metrics import pearson
+from ..ops.color import rgb_to_lab, tile_mean_lab_ordered
+from ..ops.metrics import pearson, pearson_ordered
 from ..ops.resample import lanczos_matrix, planar_to_rgb, resize_rgb
 from ..ops.tiles import canonicalize, pad_frame
 from ..utils.spill import spill_memmap
@@ -36,17 +36,23 @@ def _load_chunk(frames: torch.Tensor):
     previous frame of the chunk; corr[0] = 1).
 
     mean LAB is taken in the ORIGINAL orientation, before the mirror pass
-    (the reference's PrepareInterFrameData order)."""
+    (the reference's PrepareInterFrameData order). On the CPU the mean LAB
+    and the correlations are the JAX package's CPU bits
+    (``ops/color.tile_mean_lab_ordered``, ``ops/metrics.pearson_ordered``);
+    on a card they keep its own arithmetic, as the ordered forms there
+    take about fourteen times as long (``scripts/torch_profile.py
+    --order-cost``)."""
     B, H, W, _ = frames.shape
     t = frames.reshape(B, H // TILE_W, TILE_W, W // TILE_W, TILE_W, 3)
     t = t.permute(0, 1, 3, 2, 4, 5).reshape(B, -1, TILE_W, TILE_W, 3)
     tf = t.float()
-    mean_lab = rgb_to_lab(tf).mean(dim=(2, 3))  # [B, N, 3]
+    ordered = frames.device.type == "cpu"
+    mean_lab = tile_mean_lab_ordered(tf) if ordered else rgb_to_lab(tf).mean(dim=(2, 3))
     canon, hm, vm = canonicalize(tf)
     lab_flat = mean_lab.reshape(B, -1)
     corr = torch.ones(B, dtype=torch.float32, device=frames.device)
     if B > 1:
-        corr[1:] = pearson(lab_flat[:-1], lab_flat[1:], axis=-1)
+        corr[1:] = (pearson_ordered if ordered else pearson)(lab_flat[:-1], lab_flat[1:])
     flags = hm.to(torch.uint8) | (vm.to(torch.uint8) << 1)
     return canon.to(torch.uint8), flags, corr
 

@@ -67,11 +67,13 @@ def _dct_basis64() -> np.ndarray:
     return np.einsum("vy,ux->vuyx", D, D).reshape(64, 64).T.astype(np.float32)
 
 
-def _dct64(tiles_rgb: torch.Tensor, ordered: bool = False) -> torch.Tensor:
+def _dct64(tiles_rgb: torch.Tensor, ordered: bool = False, luma_fma: bool = True) -> torch.Tensor:
     """Unweighted 2D DCT of YUV tiles: [..., 8, 8, 3] RGB -> [..., 3,
-    64 (v,u)] float32; ``ordered``: in XLA's CPU order (the FMA luma, one
-    FMA chain over the 64 pixels)."""
-    yuv = (rgb_to_yuv_ordered if ordered else rgb_to_yuv)(tiles_rgb.float())
+    64 (v,u)] float32; ``ordered``: in XLA's CPU order, one FMA chain over
+    the 64 pixels after the luma as XLA fuses it inside a program (the FMA
+    luma) or, without ``luma_fma``, as the JAX package's calls outside
+    one round it, product by product."""
+    yuv = (rgb_to_yuv_ordered if ordered and luma_fma else rgb_to_yuv)(tiles_rgb.float())
     lead = yuv.shape[:-3]
     x = torch.movedim(yuv, -1, -3).reshape(*lead, 3, 64)
     basis = torch.as_tensor(_dct_basis64(), device=x.device)
@@ -84,11 +86,27 @@ def _weights64(device) -> torch.Tensor:
     return torch.as_tensor(DCT_WEIGHTS, dtype=torch.float32, device=device).reshape(3, 64)
 
 
+def tile_dct_features(tiles_rgb: torch.Tensor, ordered: bool = False,
+                      luma_fma: bool = True):
+    """(z, feats) of tiles_rgb [..., 8, 8, 3]: the unweighted DCT [..., 3,
+    64] and the weighted-DCT YUV features in (c, v, u) raster layout (no
+    zigzag) [..., 192] float32. ``ordered`` and ``luma_fma``:
+    :func:`_dct64`'s."""
+    z = _dct64(tiles_rgb, ordered, luma_fma)
+    return z, (z * _weights64(z.device)).reshape(*z.shape[:-2], K)
+
+
 def tile_features_raster(tiles_rgb: torch.Tensor) -> torch.Tensor:
     """Weighted-DCT YUV features in (c, v, u) raster layout (no zigzag);
     tiles_rgb [..., 8, 8, 3] -> [..., 192] float32."""
-    z = _dct64(tiles_rgb)
-    return (z * _weights64(z.device)).reshape(*z.shape[:-2], K)
+    return tile_dct_features(tiles_rgb)[1]
+
+
+def feature_residual(z: torch.Tensor, rf: torch.Tensor) -> torch.Tensor:
+    """The features of the tiles whose unweighted DCT is z [..., 3, 64]
+    less rf [..., 192], as XLA's CPU build fuses the difference: fma(z,
+    w, -rf) -> [..., 192]."""
+    return fma32(z, _weights64(z.device), -rf.reshape(z.shape)).reshape(*z.shape[:-2], K)
 
 
 def window_dct_field(frame_rgb: torch.Tensor) -> torch.Tensor:
@@ -294,9 +312,7 @@ def motion_search(cur_rgb: torch.Tensor, prev_rgb: torch.Tensor, radius: int,
     NQ = 2 * Q
 
     cur = cur_rgb.float().reshape(th, TILE_W, tw, TILE_W, 3).transpose(1, 2)
-    z = _dct64(cur, ordered)  # [th, tw, 3, 64]
-    w = _weights64(dev)
-    T = (z * w).reshape(th, tw, K)
+    z, T = tile_dct_features(cur, ordered)  # [th, tw, 3, 64], [th, tw, K]
     if int16:
         T = torch.round(T)
     KR = int(rank_dims)
@@ -308,7 +324,8 @@ def motion_search(cur_rgb: torch.Tensor, prev_rgb: torch.Tensor, radius: int,
             Tc = Tr - mu
         else:
             zr = z.reshape(th, tw, K) if KR == K else _lowfreq_tiles(z.reshape(th, tw, K), KR)
-            wr = w.reshape(K) if KR == K else _lowfreq_tiles(w.reshape(K), KR)
+            w = _weights64(dev).reshape(K)
+            wr = w if KR == K else _lowfreq_tiles(w, KR)
             Tc = fma32(zr, wr, -mu)
         T2 = row_sum(Tc * Tc)
     else:
@@ -446,14 +463,13 @@ def _rank_merge(e, z, T, th, tw, NQ, P, prev_rgb, int16, return_windows, ordered
     d8 = torch.arange(TILE_W, device=dev)
     win = prev_rgb.float()[(wyc[:, None, None] + d8[None, :, None]),
                            (wxc[:, None, None] + d8[None, None, :])]
-    w = _weights64(dev)
-    Wv = _dct64(win, ordered) * w  # [th*tw, 3, 64]
+    _, Wv = tile_dct_features(win, ordered)  # [th*tw, K]
     if int16:
-        diff = T.reshape(-1, K) - torch.round(Wv).reshape(-1, K)
+        diff = T.reshape(-1, K) - torch.round(Wv)
     elif ordered:
-        diff = fma32(z.reshape(-1, 3, 64), w, -Wv).reshape(-1, K)
+        diff = feature_residual(z.reshape(-1, 3, 64), Wv)
     else:
-        diff = T.reshape(-1, K) - Wv.reshape(-1, K)
+        diff = T.reshape(-1, K) - Wv
     sq = diff * diff
     exact = (row_sum(sq) if ordered else sq.sum(dim=-1)).reshape(th, tw)
     exact = exact + best_oy.abs().float() + best_ox.abs().float()

@@ -37,6 +37,18 @@ EPU tie-break: among minimal-error pairs, the smallest packed
 ``tile * P + palette`` id, which is the reference's strict-< scan over
 candidates sorted tile-major, palette-minor.
 
+On the CPU both phases compute in the JAX package's CPU float order
+(``ops/ordered.py``, ``ops/introsort.py``; ``tests/test_torch_reconstruct_
+order.py``), so that their winners, flags and PSNR bits are the
+reference's: the features as XLA fuses them, the exact errors as fma(z, w,
+-rf) summed in XLA's windows, the exact top-k's keys from a bounded
+float32 product with the open ones summed again in XLA's order and the
+order of equal keys that its unstable sort leaves (:func:`_topk_ordered`),
+the EPU's deciding pair errors in XLA's batched-dot orders
+(:func:`_ordered_pick`, at the palette sizes :func:`_epu_ordered` names),
+and phase B's errors (:func:`_eval_vectors`). On a card both keep the
+card's own arithmetic, chosen by the device alone.
+
 The EPU's tables, three ways (``tiler_tpu/pipeline/reconstruct.py:209-368``):
 the default bf16 G and f32 Q rows; ``epu_two_stage``, int8 low-frequency
 G and int16 Q that rank every pair, then the exact errors of each cell's
@@ -55,13 +67,15 @@ from ..kernels.knn_topk import (TB, TP_ALIGN, knn_bucket_topk, knn_bucket_topk2,
 from ..models.state import EncodeState
 from ..ops.color import rgb_to_yuv
 from ..ops.dct import DCT_MAT, DCT_WEIGHTS
+from ..ops.introsort import sorted_prefix
 from ..ops.metrics import euclidean_to_psnr
+from ..ops.ordered import U32, bf16_pairs_sum, gamma, lanes4_sum, row_sum
 from ..parallel.collectives import axis_index
 from ..parallel.knn import TOPK_BUDGET, sharded_topk
 from ..parallel.mesh import mesh_shape
 from .ivf import build_ivf, ivf_search
 from .load import to_device
-from .motion import motion_search, tile_features_raster
+from .motion import feature_residual, motion_search, tile_dct_features
 
 TILE_W = 8
 K = 192
@@ -74,6 +88,16 @@ INT32_MAX = 2**31 - 1
 # (1 GiB of f32): 4,096 tiles at S = 256
 QUAD_CHUNK = 1 << 28
 IDCT_CHUNK = 16384  # tiles a chunk of _indicator_dcts' one-hot products
+# the CPU's ordered phase A: (cell, tile) entries a chunk of the ordered
+# ranking sums, and the bytes of one [cells, T] float32 matrix of the
+# ordered top-k
+ORDERED_ENTRIES = 1 << 17
+ORDERED_TOPK_BYTES = 2.5e8
+SLACK = 1.01  # margin on a summation bound for its own float32 rounding
+# what the ordered phase A computes and sums again in XLA's order, counted
+# into reconstruct's stats (as "ordered_<name>")
+ORDERED_COUNTS = ("topk_keys", "topk_keys_resummed", "topk_rows", "topk_rows_replayed",
+                  "epu_pairs", "epu_pairs_resummed")
 
 
 def _render_corpus(palettes_rgb, pal_initial, pal_pixels):
@@ -103,7 +127,11 @@ def _indicator_dcts(pal_pixels, S: int, chunk: int = IDCT_CHUNK):
 def _quad_rows(Gf, wf2, tri_i, tri_j, dbl):
     """Packed upper-triangle quadratic rows of a chunk of tiles:
     [tiles, 3 * ntri] float32 from Gf [tiles, V, S] float32 and the
-    squared weights wf2 [V, 3] of its V coefficients."""
+    squared weights wf2 [V, 3] of its V coefficients. At V = 64 both
+    torch's CPU bmm and cuBLAS's sum each entry as the JAX package's CPU
+    batched dot does, one FMA chain over v
+    (``tests/test_torch_reconstruct_order.py``; on the card
+    ``scripts/torch_profile.py --order-cost``)."""
     outs = [torch.bmm((Gf * wf2[:, c][None, :, None]).transpose(1, 2), Gf)[:, tri_i, tri_j] * dbl
             for c in range(3)]
     return torch.stack(outs, dim=1).reshape(Gf.shape[0], -1)
@@ -250,6 +278,106 @@ def _topk_candidates(feats, ds, k: int):
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
+def _rank_keys(f2, dot, d2):
+    """The top-k's ranking keys bf16(f2 - 2 dot + d2), as float32."""
+    return (f2 - 2.0 * dot + d2).to(torch.bfloat16).float()
+
+
+def _exact_keys(fb, db, f2, d2, rows, cols):
+    """The ranking keys of the (cell, tile) entries rows, cols with the
+    product fb[rows] . db[cols] as XLA's CPU dot sums it here: the exact
+    products of the bf16 values added from k = 0 in float32."""
+    out = torch.empty(len(rows))
+    for i in range(0, len(rows), ORDERED_ENTRIES):
+        r, c = rows[i:i + ORDERED_ENTRIES], cols[i:i + ORDERED_ENTRIES]
+        p = (fb[r] * db[c]).T.contiguous()  # [K, n]: each step one contiguous row
+        acc = p[0]
+        for k in range(1, K):
+            acc = acc + p[k]
+        out[i:i + ORDERED_ENTRIES] = _rank_keys(f2[r], acc, d2[c])
+    return out
+
+
+def _by_key(ids: np.ndarray, key: np.ndarray) -> np.ndarray:
+    """ids ordered by (key, id)."""
+    return ids[np.lexsort((ids, key[ids]))]
+
+
+def _topk_ordered(feats, ds, d2, k: int, pal_k: int, counts=None):
+    """The JAX package's CPU top-k (``_topk_oneshot`` with the exact sort
+    that ``approx_max_k`` lowers to there), as far as phase A reads it:
+    [N, k] int32 corpus indexes whose first ``pal_k`` and whole k are the
+    reference's sets (in order of key, then index); for k = 1 the argmin,
+    the first of equal keys.
+
+    The product comes from one float32 matmul, bounded by 2 gamma_192
+    |fb| |db| around XLA's sum from k = 0; a key is read at both ends of
+    its bound and summed again in XLA's order (:func:`_exact_keys`) only
+    where the two differ and it could still rank. The reference's sort
+    is unstable: where equal keys straddle the k-th or the pal_k-th
+    place, the row's keys are all made exact and libstdc++'s introsort is
+    replayed on the padded row (``ops/introsort.py``). ``counts`` (a dict)
+    adds up the (cell, tile) keys, those summed again, the rows and the
+    rows replayed."""
+    N, T = feats.shape[0], ds.shape[0]
+    fb, db = feats.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    f2 = row_sum(feats * feats)[:, None]
+    dot = fb @ db.T
+    bound = (2 * gamma(K) * SLACK) * fb.norm(dim=1)[:, None] * db.norm(dim=1)
+    lo, hi = _rank_keys(f2, dot + bound, d2), _rank_keys(f2, dot - bound, d2)
+    del dot, bound
+    n = min(k + 1, T)
+    cand = lo <= hi.kthvalue(n, dim=1, keepdim=True).values
+    key = torch.where(cand, lo, torch.inf)
+    r, c = (cand & (lo != hi)).nonzero(as_tuple=True)
+    key[r, c] = _exact_keys(fb, db, f2[:, 0], d2, r, c)
+    if counts is not None:
+        counts["topk_keys"] += N * T
+        counts["topk_keys_resummed"] += len(r)
+    if k == 1:
+        return key.argmin(dim=1, keepdim=True).to(torch.int32)
+    vals, ids = key.topk(n, dim=1, largest=False)
+    ids, perm = ids.sort(dim=1)
+    vals, order = vals.gather(1, perm).sort(dim=1, stable=True)
+    ids = ids.gather(1, order)
+    out = ids[:, :k].clone()
+    tie = torch.zeros(N, dtype=torch.bool)
+    for p in {k, pal_k}:
+        if p < n:
+            tie |= vals[:, p - 1] == vals[:, p]
+    rows = tie.nonzero()[:, 0]
+    if counts is not None:
+        counts["topk_rows"] += N
+        counts["topk_rows_replayed"] += len(rows)
+    if len(rows):
+        Tpad = 256
+        while Tpad < T:
+            Tpad *= 2
+        full = lo[rows]
+        rr, cc = (full != hi[rows]).nonzero(as_tuple=True)
+        full[rr, cc] = _exact_keys(fb, db, f2[:, 0], d2, rows[rr], cc)
+        if counts is not None:
+            counts["topk_keys_resummed"] += len(rr)
+        keys = torch.full((len(rows), Tpad), torch.inf, dtype=torch.float64)
+        keys[:, :T] = full.double()
+        for i, row in enumerate(rows.tolist()):
+            key_row = keys[i].numpy()
+            pre = sorted_prefix(key_row, (k, pal_k))
+            head = pre[pal_k]
+            rest = np.setdiff1d(pre[k], head) if pal_k < k else head[:0]
+            out[row] = torch.as_tensor(np.concatenate([_by_key(head, key_row),
+                                                       _by_key(rest, key_row)]))
+    return out.to(torch.int32)
+
+
+def _topk_ordered_candidates(feats, ds, d2, k: int, pal_k: int, counts=None):
+    """_topk_ordered over cell blocks whose [cells, T] float32 matrices fit
+    ORDERED_TOPK_BYTES each."""
+    cells = max(256, int(ORDERED_TOPK_BYTES / (ds.shape[0] * 4)))
+    return torch.cat([_topk_ordered(feats[i:i + cells], ds, d2, k, pal_k, counts)
+                      for i in range(0, feats.shape[0], cells)])
+
+
 def _rall(pal_yuv, S: int):
     """Per-palette outer products at the triangle's indexes: [P, 3 * ntri],
     R[j, (c, s<=s')] = Py[j, s, c] Py[j, s', c]."""
@@ -263,16 +391,69 @@ def _ftw(f, wf):
     return f.reshape(f.shape[0], 3, 64).transpose(1, 2) * wf
 
 
+def _cand_products(Gi, ftw):
+    """C[b, k, (s, c)] = sum_v Gi[b, k, v, s] ftw[b, v, c]: [b, kk, S * 3]."""
+    b, kk, V, S = Gi.shape
+    return torch.bmm(Gi.transpose(2, 3).reshape(b, kk * S, V), ftw).reshape(b, kk, S * 3)
+
+
 def _pair_err(Gi, Qi, ftw, Py, Rj):
     """Norm-expansion error of every (candidate tile, candidate palette)
     pair of a chunk of cells, [b, kk * kp]: Q_i . R_j - 2 <C_i, Py_j> with
     C[b, k, s, c] = sum_v Gi[b, k, v, s] ftw[b, v, c]. Gi [b, kk, V, S]
     float32, Qi [b, kk, X], ftw [b, V, 3], Py [b, kp, S, 3], Rj [b, kp, X]."""
-    b, kk, V, S = Gi.shape
-    C = torch.bmm(Gi.transpose(2, 3).reshape(b, kk * S, V), ftw).reshape(b, kk, S * 3)
+    b, S = Gi.shape[0], Gi.shape[3]
+    C = _cand_products(Gi, ftw)
     err = torch.bmm(Qi, Rj.transpose(1, 2)) - 2.0 * torch.bmm(C, Py.reshape(b, -1, S * 3)
                                                                .transpose(1, 2))
     return err.reshape(b, -1)
+
+
+def _ordered_pick(Gi, Qi, ftw, Py, Rj, tile, pal, P: int, counts=None):
+    """:func:`_tie_break` on the JAX package's CPU pair errors. Every
+    pair's error is computed in float64 from a float32 C, and bounded
+    around XLA's float32 one: XLA sums C over v from k = 0 and the float32
+    product any order (each within gamma(V) sum |Gi| |ftw| of exact, a sum
+    bounded by Cauchy-Schwarz), then C . Py (3 S terms) and Q . R (X
+    terms) in four FMA lanes each (n / 4 + 2 roundings on a term's path),
+    so each sum lies within gamma of its count of roundings times the sum
+    of |terms|, C's errors carry into C . Py, and the last subtraction
+    rounds. Every pair whose bound reaches the cell's least upper bound is
+    computed again in XLA's order (C by the bf16 pair sum, the rest by
+    four FMA lanes); the others cannot be minimal. ``counts`` (a dict)
+    adds up the pairs and those summed again. Returns (tile, pal) [b]."""
+    b, kk, V, S = Gi.shape
+    kp, X = Py.shape[1], Qi.shape[2]
+    Gt = Gi.transpose(2, 3).reshape(b, kk * S, V)
+    C = torch.bmm(Gt, ftw).reshape(b, kk, S * 3)
+    Py3 = Py.reshape(b, kp, S * 3).transpose(1, 2)
+    err = (torch.bmm(Qi.double(), Rj.double().transpose(1, 2))
+           - 2.0 * torch.bmm(C.double(), Py3.double())).reshape(b, -1)
+    D = (Gt.norm(dim=2)[:, :, None] * ftw.norm(dim=1)[:, None, :]).reshape(b, kk, S * 3)
+    H = torch.bmm(D, Py3.abs())
+    E = torch.bmm(C.abs(), Py3.abs())
+    A = torch.bmm(Qi.abs(), Rj.abs().transpose(1, 2))
+    gc = gamma(V)
+    bnd = gamma(X // 4 + 2) * A + 2 * (gamma(3 * S // 4 + 2) * (E + 2 * gc * H) + 2 * gc * H)
+    bnd = SLACK * (bnd.reshape(b, -1).double() + 2 * U32 * err.abs())
+    ub = (err + bnd).min(dim=1, keepdim=True).values
+    cb, slot = (err - bnd <= ub).nonzero(as_tuple=True)
+    ck, cj = slot // kp, slot % kp
+    n = len(cb)
+    if counts is not None:
+        counts["epu_pairs"] += err.numel()
+        counts["epu_pairs_resummed"] += n
+    ct, inv = torch.unique(cb * kk + ck, return_inverse=True)  # the (cell, tile) pairs
+    Cx = bf16_pairs_sum(Gi[ct // kk, ct % kk].transpose(1, 2)[:, :, None, :],
+                        ftw[ct // kk].transpose(1, 2)[:, None, :, :])[inv]  # [n, S, 3]
+    e2 = lanes4_sum(Cx.transpose(1, 2).reshape(n, -1), Py[cb, cj].transpose(1, 2).reshape(n, -1))
+    ex = lanes4_sum(Qi[cb, ck], Rj[cb, cj]) - 2.0 * e2
+    m = torch.full((b,), torch.inf).scatter_reduce(0, cb, ex, "amin")
+    win = ex == m[cb]
+    combo = tile[cb, slot] * P + pal[cb, slot]
+    best = torch.full((b,), INT32_MAX, dtype=combo.dtype).scatter_reduce(
+        0, cb[win], combo[win], "amin")
+    return best // P, best % P
 
 
 def _tie_break(err, tile, pal, P: int):
@@ -286,7 +467,15 @@ def _tie_break(err, tile, pal, P: int):
     return best // P, best % P, m[:, 0]
 
 
-def _epu_rank_all(feats, cand_idx, cand_pal, G, Q, pal_yuv, S: int, cell_chunk: int):
+def _epu_ordered(S: int, dev) -> bool:
+    """Whether the EPU ranks in XLA's CPU order: on the CPU, at palette
+    sizes whose two sums (3 S and 3 S(S+1)/2 terms) XLA splits into four
+    equal lanes, up to 32 colors (the order read at S = 8, 16 and 32)."""
+    return dev.type == "cpu" and S % 8 == 0 and S <= 32
+
+
+def _epu_rank_all(feats, cand_idx, cand_pal, G, Q, pal_yuv, S: int, cell_chunk: int,
+                  counts=None):
     """Cartesian re-rank of (candidate tile, candidate palette) pairs.
 
     Norm expansion: argmin over (i, j) of |rf|^2 - 2 <rf, ft> with
@@ -294,11 +483,15 @@ def _epu_rank_all(feats, cand_idx, cand_pal, G, Q, pal_yuv, S: int, cell_chunk: 
     pal [B]) int64, tie-break by the smallest packed tile * P + pal.
     With ``Q`` None, ``G`` is the fused table (``epu_fused_fp``): one
     gather of its byte rows, split by dtype views into the same bf16 G
-    and f32 Q rows, so the ranking is the default's bit for bit."""
+    and f32 Q rows, so the ranking is the default's bit for bit. On the
+    CPU (:func:`_epu_ordered`) the errors that can decide are the JAX
+    package's (:func:`_ordered_pick`, which adds to ``counts``), given
+    its Q (``_epu_tables``)."""
     dev = feats.device
     B, kk = cand_idx.shape
     kp = cand_pal.shape[1]
     P = pal_yuv.shape[0]
+    ordered = _epu_ordered(S, dev)
     w = torch.as_tensor(DCT_WEIGHTS, dtype=torch.float32, device=dev)
     wf = w.permute(1, 2, 0).reshape(64, 3)
     Rall = _rall(pal_yuv, S)
@@ -317,9 +510,13 @@ def _epu_rank_all(feats, cand_idx, cand_pal, G, Q, pal_yuv, S: int, cell_chunk: 
             Gi, Qi = G[ci], Q[ci]  # [b, kk, 64, S] bf16 (ranking only); [b, kk, 3*ntri]
         Gi = Gi.reshape(b, kk, 64, S).float()
         ftw = _ftw(f, wf).to(torch.bfloat16).float()
-        err = _pair_err(Gi, Qi, ftw, pal_yuv[cp], Rall[cp])
-        t, p, _ = _tie_break(err, ci[:, :, None].expand(b, kk, kp).reshape(b, -1),
-                             cp[:, None, :].expand(b, kk, kp).reshape(b, -1), P)
+        Py, Rj = pal_yuv[cp], Rall[cp]
+        tile = ci[:, :, None].expand(b, kk, kp).reshape(b, -1)
+        pal = cp[:, None, :].expand(b, kk, kp).reshape(b, -1)
+        if ordered:
+            t, p = _ordered_pick(Gi, Qi, ftw, Py, Rj, tile, pal, P, counts)
+        else:
+            t, p, _ = _tie_break(_pair_err(Gi, Qi, ftw, Py, Rj), tile, pal, P)
         tiles.append(t)
         pals.append(p)
     return torch.cat(tiles), torch.cat(pals)
@@ -366,19 +563,32 @@ def _epu_rank_two_stage(feats, cand_idx, cand_pal, G8lf, g_inv, Q16, q_inv, pal_
     return torch.cat(tiles), torch.cat(pals), torch.cat(errs)
 
 
-def _features(tiles_rgb, int16: bool):
-    """tile_features_raster, rounded under int16_features."""
-    f = tile_features_raster(tiles_rgb)
-    return torch.round(f) if int16 else f
+def _features(tiles_rgb, int16: bool, ordered: bool = False, luma_fma: bool = True):
+    """(z, feats): motion.tile_dct_features's, the features rounded under
+    int16_features."""
+    z, f = tile_dct_features(tiles_rgb, ordered, luma_fma)
+    return z, (torch.round(f) if int16 else f)
 
 
-def _exact_choice_err(feats, tile, pal, pp, palettes, int16: bool = False):
-    """Exact fp32 error of the chosen (tile, palette) per cell."""
+def _sq_err(feats, rf, z=None, int16: bool = False):
+    """|feats - rf|^2 of each row [..., 192]. Given the rows' unweighted
+    DCT z, in the JAX package's CPU order: the difference fused as fma(z,
+    w, -rf) (under int16_features the rounded features subtract exactly)
+    and the squares summed in XLA's windows."""
+    if z is None or int16:
+        d = feats - rf
+    else:
+        d = feature_residual(z, rf).reshape(feats.shape)
+    return (d * d).sum(dim=-1) if z is None else row_sum(d * d)
+
+
+def _exact_choice_err(feats, tile, pal, pp, palettes, int16: bool = False, z=None):
+    """Exact fp32 error of the chosen (tile, palette) per cell; given the
+    cells' unweighted DCT z, in the JAX package's CPU order."""
     n = tile.shape[0]
     rgb = palettes[pal.long()[:, None], pp[tile.long()].reshape(n, 64).long()]
-    rf = _features(rgb.float().reshape(n, 8, 8, 3), int16)
-    d = feats - rf
-    return (d * d).sum(dim=1)
+    _, rf = _features(rgb.float().reshape(n, 8, 8, 3), int16, z is not None)
+    return _sq_err(feats, rf, z, int16)
 
 
 def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str, cells: int):
@@ -388,8 +598,13 @@ def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str, cells: i
     takes precedence), and counts the probes it dropped of the row's first
     ``cells`` cells (the rest pad the row); else ``kernel`` is "v2" (B2),
     "v1" or "" (the exact top-k). With a mesh in ``ctx`` every row takes
-    the corpus-sharded exact top-k."""
-    feats = _features(tiles.float(), ctx["int16"])
+    the corpus-sharded exact top-k. On the CPU (``ctx["ordered"]``) the
+    features, the exact top-k, the EPU's deciding errors and the exact
+    errors are the JAX package's CPU values (its mesh branch takes the
+    features outside a program: their luma is not fused)."""
+    ordered = ctx["ordered"]
+    z, feats = _features(tiles.float(), ctx["int16"], ordered, "mesh" not in ctx)
+    z = z if ordered else None
     if "mesh" in ctx:
         idx, _ = sharded_topk(feats, ctx["ds_local"], kk, ctx["mesh"])
         idx = idx.clamp_max(ctx["ds"].shape[0] - 1)  # the padding never ranks
@@ -403,21 +618,22 @@ def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str, cells: i
     elif kernel == "v2":
         idx, _ = knn_bucket_topk2(feats, ctx["dsTa"], kk)
         ctx["kernel_cells"] += feats.shape[0]
+    elif ordered:
+        idx = _topk_ordered_candidates(feats, ctx["ds"], ctx["d2"], kk, pal_k, ctx["counts"])
     else:
         idx, _ = _topk_candidates(feats, ctx["ds"], kk)
     idx = idx.long()
     if not epu:
         t = idx[:, 0]
-        d = feats - ctx["ds"][t]
-        return t, ctx["pal_initial"][t], (d * d).sum(dim=1)
+        return t, ctx["pal_initial"][t], _sq_err(feats, ctx["ds"][t], z, ctx["int16"])
     cand_pal = ctx["pal_initial"][idx[:, :pal_k]]
     if "two_stage" in ctx:  # stage 2 gives the exact error of its pick
         return _epu_rank_two_stage(feats, idx, cand_pal, *ctx["two_stage"], ctx["pal_yuv"],
                                    ctx["pp"], ctx["palettes"], ctx["S"], *ctx["stage1"],
                                    ctx["cell_chunk"], ctx["int16"])
     t, p = _epu_rank_all(feats, idx, cand_pal, ctx["G"], ctx["Q"], ctx["pal_yuv"],
-                         ctx["S"], ctx["cell_chunk"])
-    return t, p, _exact_choice_err(feats, t, p, ctx["pp"], ctx["palettes"], ctx["int16"])
+                         ctx["S"], ctx["cell_chunk"], ctx["counts"])
+    return t, p, _exact_choice_err(feats, t, p, ctx["pp"], ctx["palettes"], ctx["int16"], z)
 
 
 def mesh_corpus_shard(ds, mesh):
@@ -438,7 +654,8 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict, mesh=
     the corpus size, the cells that went through a top-k kernel (B2 or
     v1), the IVF's block count (0 without one) and the share of the
     cells' probes that its capacity dropped (the padding of a short row
-    not counted) to ``stats``. With ``mesh`` the corpus is sharded over
+    not counted) to ``stats``, with the CPU's ordered counts
+    (``ORDERED_COUNTS``, 0 on a card). With ``mesh`` the corpus is sharded over
     its "corpus" axis: every cell, in groups of frames, takes the exact
     top-k, and ``knn_backend`` is not read."""
     F, N = state.n_frames, state.tilemap_size
@@ -448,7 +665,11 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict, mesh=
     pal_initial = torch.as_tensor(state.corpus_pal_initial, device=dev).long()
     pp = state.corpus_pal_pixels
     int16 = settings.int16_features
-    ds = _features(_render_corpus(palettes, pal_initial, pp).float(), int16)
+    # the JAX package computes the corpus features outside a program: on
+    # the CPU in XLA's order with the luma unfused
+    ordered = dev.type == "cpu"
+    _, ds = _features(_render_corpus(palettes, pal_initial, pp).float(), int16, ordered,
+                      luma_fma=False)
     T = ds.shape[0]
     # (tile, palette) packs into one int32 for the EPU tie-break and the
     # phase-A results: fail loudly rather than wrap
@@ -480,11 +701,12 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict, mesh=
             and settings.knn_backend in ("pallas", "pallas_v1")):
         kernel = "v1" if settings.knn_backend == "pallas_v1" else "v2"
     ctx = {
-        "ds": ds, "pal_initial": pal_initial, "pp": pp, "palettes": palettes,
+        "ds": ds, "d2": row_sum(ds * ds) if ordered else None, "ordered": ordered,
+        "pal_initial": pal_initial, "pp": pp, "palettes": palettes,
         "pal_yuv": rgb_to_yuv(palettes.float()), "S": S,
         "cell_chunk": max(64, min(4096, int(3e8 / per_cell))),
         "kernel_cells": 0, "int16": int16, "ivf": None, "ivf_probes": settings.ivf_probes,
-        "ivf_dropped": 0, "ivf_slots": 0,
+        "ivf_dropped": 0, "ivf_slots": 0, "counts": dict.fromkeys(ORDERED_COUNTS, 0),
     }
     if mesh is not None:
         ctx["mesh"] = mesh
@@ -544,18 +766,21 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict, mesh=
     stats["knn_kernel_cells"] = ctx["kernel_cells"]
     stats["ivf_blocks"] = 0 if ctx["ivf"] is None else ctx["ivf"].n_blocks
     stats["ivf_overflow"] = float(ctx["ivf_dropped"]) / max(1, ctx["ivf_slots"])
+    stats.update({f"ordered_{k}": v for k, v in ctx["counts"].items()})
     return kt.reshape(F, N), kp.reshape(F, N), ke.reshape(F, N)
 
 
 def _eval_vectors(cur, back, oy, ox, th: int, tw: int, int16: bool = False):
     """Exact weighted-DCT error of the given per-cell motion vectors
-    against ``back`` plus the Manhattan penalty. Returns (err [N] f32,
-    win [N, 8, 8, 3] f32 window pixels)."""
+    against ``back`` plus the Manhattan penalty (on the CPU in the JAX
+    package's order: :func:`_sq_err`). Returns (err [N] f32, win [N, 8,
+    8, 3] f32 window pixels)."""
     dev = cur.device
+    ordered = dev.type == "cpu"
     H, W = cur.shape[0], cur.shape[1]
     N = th * tw
     curt = cur.reshape(th, TILE_W, tw, TILE_W, 3).transpose(1, 2)
-    T = _features(curt, int16).reshape(N, K)
+    z, T = _features(curt, int16, ordered)
     wy = torch.arange(th, device=dev)[:, None] * TILE_W + oy.reshape(th, tw)
     wx = torch.arange(tw, device=dev)[None, :] * TILE_W + ox.reshape(th, tw)
     wyc = wy.clamp(0, H - TILE_W).reshape(-1)
@@ -563,9 +788,9 @@ def _eval_vectors(cur, back, oy, ox, th: int, tw: int, int16: bool = False):
     d8 = torch.arange(TILE_W, device=dev)
     win = back[(wyc[:, None, None] + d8[None, :, None]),
                (wxc[:, None, None] + d8[None, None, :])]
-    d = T - _features(win, int16)
-    err = (d * d).sum(dim=-1) + oy.abs().float() + ox.abs().float()
-    return err, win
+    _, Wv = _features(win, int16, ordered)
+    err = _sq_err(T.reshape(N, K), Wv, z.reshape(N, 3, 64) if ordered else None, int16)
+    return err + oy.abs().float() + ox.abs().float(), win
 
 
 def _phase_b_keyframe(frames, kt, kp, ke, hm, vm, pay, pax, pp, palettes,
