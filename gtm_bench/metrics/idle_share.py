@@ -1,0 +1,8 @@
+"""idle_share (%; layer device): 1 - (union of device intervals) / traced
+window, in percent."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
