@@ -571,3 +571,101 @@ def test_mesh_of_one_card_matches_the_cpu(cuda, tmp_path):
     assert got["knn_kernel_cells"] == 0 and got["frames"] == 6
     assert abs(got["psnr"] - want["psnr"]) <= 0.1
     assert abs(got["bytes"] - want["bytes"]) <= 0.02 * want["bytes"]
+
+
+def _epu_case(T, P, S, cells, kk, kp, seed, device):
+    """A seeded corpus of T tiles at S colours, P palettes, and cells each
+    with kk candidate tiles and their first kp tiles' own palettes, as
+    phase A hands them to the EPU re-rank."""
+    from tiler_tpu_torch.ops.color import rgb_to_yuv
+    from tiler_tpu_torch.pipeline import reconstruct as t_rec
+
+    g = torch.Generator().manual_seed(seed)
+    pp = torch.randint(0, S, (T, 8, 8), generator=g, dtype=torch.uint8)
+    palettes = torch.randint(0, 256, (P, S, 3), generator=g, dtype=torch.uint8)
+    pal_initial = torch.randint(0, P, (T,), generator=g)
+    _, feats = t_rec._features(torch.randint(0, 256, (cells, 8, 8, 3), generator=g).float(),
+                               False)
+    idx = torch.stack([torch.randperm(T, generator=g)[:kk] for _ in range(cells)])
+    return [a.to(device) for a in (pp, palettes, rgb_to_yuv(palettes.float()), feats, idx,
+                                   pal_initial[idx[:, :kp]])]
+
+
+@pytest.mark.cuda
+def test_epu_table_picks_lie_within_the_gap_at_s256(cuda):
+    """The wide shape (S = 256, P = 16: the card takes the [T, P] Q . R
+    table): the picks of 512 cells among 64 x 16 candidate pairs lie
+    within epu_gap 1e-6 of the float64 best pair, as the benchmark's
+    reference measures it, at the chunk phase A gives them."""
+    from gtm_bench.reference import epu
+    from tiler_tpu_torch.pipeline import reconstruct as t_rec
+
+    S, P, kk, kp = 256, 16, 64, 16
+    pp, palettes, pal_yuv, feats, idx, cand_pal = _epu_case(2000, P, S, 512, kk, kp, 256, cuda)
+    assert t_rec._epu_table(cuda, P, S)
+    G, QR = t_rec._epu_tables(pp, S, rall=t_rec._rall(pal_yuv, S))
+    assert QR.shape == (2000, P) and QR.dtype == torch.float32
+    chunk = max(1, min(4096, int(3e8 / (kk * (64 * S * (2 + 4) + kp * 4)))))
+    t, p = t_rec._epu_rank_all(feats, idx, cand_pal, G, QR, pal_yuv, S, chunk, table=True)
+    assert epu.gap(feats, idx, cand_pal, t, p, pp, palettes) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_epu_table_cells_count_the_cells_re_ranked(cuda, tmp_path):
+    """A wide-palette encode on the card: phase A builds the table, every
+    re-rank is given it, and ``epu_table_cells`` is the count of cells
+    re-ranked."""
+    from tiler_tpu_torch.config import EncoderSettings
+    from tiler_tpu_torch.pipeline import reconstruct as t_rec
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.utils.clips import synthetic_clip
+
+    seen = []
+    rank = t_rec._epu_rank_all
+
+    def spy(feats, cand_idx, cand_pal, G, Q, *args, **kw):
+        assert kw.get("table") and Q.shape == (G.shape[0], 16)
+        seen.append(feats.shape[0])
+        return rank(feats, cand_idx, cand_pal, G, Q, *args, **kw)
+
+    t_rec._epu_rank_all = spy
+    try:
+        enc = Encoder(EncoderSettings(palette_count=16, palette_size=256, motion_predict_radius=4,
+                                      epu_knn_k=16, kmeans_iters=4), log=None, device=cuda)
+        enc.run_all(synthetic_clip(4, 64, 96), fps=25.0, out_path=str(tmp_path / "w.gtm"))
+    finally:
+        t_rec._epu_rank_all = rank
+    assert seen and enc.step_stats["epu_table_cells"] == sum(seen)
+
+
+@pytest.mark.cuda
+def test_epu_default_shape_keeps_the_per_cell_product(cuda):
+    """At the default's shape (S = 16, P = 1,024 > X = 408) the card does
+    not take the table: the re-rank as phase A calls it picks bit for bit
+    as the per-cell product of the gathered Q and R rows."""
+    from tiler_tpu_torch.pipeline import reconstruct as t_rec
+
+    S, P, kk, kp = 16, 1024, 64, 16
+    pp, _, pal_yuv, feats, idx, cand_pal = _epu_case(4000, P, S, 1024, kk, kp, 16, cuda)
+    table = t_rec._epu_table(cuda, P, S)
+    assert not table
+    G, Q = t_rec._epu_tables(pp, S)
+    got = t_rec._epu_rank_all(feats, idx, cand_pal, G, Q, pal_yuv, S, 256, table=table)
+    w = torch.as_tensor(t_rec.DCT_WEIGHTS, dtype=torch.float32, device=cuda)
+    wf = w.permute(1, 2, 0).reshape(64, 3)
+    Rall = t_rec._rall(pal_yuv, S)
+    tiles, pals = [], []
+    for i in range(0, len(feats), 256):
+        ci, cp = idx[i:i + 256].long(), cand_pal[i:i + 256].long()
+        b = len(ci)
+        Gi = G[ci].float()
+        ftw = t_rec._ftw(feats[i:i + 256], wf).to(torch.bfloat16).float()
+        C = torch.bmm(Gi.transpose(2, 3).reshape(b, kk * S, 64), ftw).reshape(b, kk, S * 3)
+        err = (torch.bmm(Q[ci], Rall[cp].transpose(1, 2))
+               - 2.0 * torch.bmm(C, pal_yuv[cp].reshape(b, kp, S * 3).transpose(1, 2)))
+        tile = ci[:, :, None].expand(b, kk, kp).reshape(b, -1)
+        pal = cp[:, None, :].expand(b, kk, kp).reshape(b, -1)
+        t, p, _ = t_rec._tie_break(err.reshape(b, -1), tile, pal, P)
+        tiles.append(t)
+        pals.append(p)
+    assert torch.equal(got[0], torch.cat(tiles)) and torch.equal(got[1], torch.cat(pals))

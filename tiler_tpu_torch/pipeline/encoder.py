@@ -266,6 +266,8 @@ class Encoder:
             reconstruct_mod.reconstruct(self.state, self.settings, stats=self.step_stats,
                                         mesh=self.mesh)
         self._stamp("reconstruct", t0)
+        self.log(f"phase A: {self.step_stats['corpus_tiles']} corpus tiles, "
+                 f"{self.step_stats['epu_table_cells']} cells ranked through the Q.R table")
         for kf in self.state.keyframes:
             self.log(f"KF {kf.start_frame:6d} PSNR-HVS: {self.state.kf_psnr[kf.index]:10.6f} (by tile)")
         self.log(f"All {self.state.n_frames:6d} PSNR-HVS: {self.state.total_psnr:10.6f} (by tile)")

@@ -54,7 +54,10 @@ the default bf16 G and f32 Q rows; ``epu_two_stage``, int8 low-frequency
 G and int16 Q that rank every pair, then the exact errors of each cell's
 best ``epu_stage1_m`` pairs; ``epu_fused_fp``, one byte row of the
 default's G and Q a tile, gathered once, ranking bit for bit as the
-default.
+default. On a card where a palette count P is no more than Q's row
+length (the wide palettes, :func:`_epu_table`), the port's own fourth:
+G and a [T, P] table of every tile's Q . R with every palette, built once
+a reconstruct, in place of Q and the per-cell product of its rows.
 """
 from __future__ import annotations
 
@@ -150,7 +153,20 @@ def _quad_chunk(S: int) -> int:
     return max(1, QUAD_CHUNK // (S * S))
 
 
-def _epu_tables(pal_pixels, S: int, fused: bool = False):
+def _epu_table(dev, P: int, S: int) -> bool:
+    """Whether the EPU takes each pair's Q . R from a [T, P] table built
+    once a reconstruct (``_epu_tables(..., rall=...)``) rather than
+    multiplying the gathered Q and R rows per cell: on a card, where a
+    table row (P values) is no longer than the Q row it replaces (3 S(S+1)
+    / 2 values). At 16 palettes of 256 colours the table is 2.3 MB
+    against 14.3 GB of Q at T = 36,307; at 1,024 palettes of 16 it would
+    be larger than Q, so the default keeps the per-cell product. The CPU
+    keeps it too: there the JAX package sums Q . R per cell in XLA's
+    order (:func:`_ordered_pick`)."""
+    return dev.type == "cuda" and P <= 3 * S * (S + 1) // 2
+
+
+def _epu_tables(pal_pixels, S: int, fused: bool = False, rall=None):
     """The EPU's rank tables of the corpus: G = _indicator_dcts in bf16
     [T, 64, S] (ranking only), and the per-tile quadratic form, packed
     upper triangle, Q[t, (c, s<=s')] = sum_v wf[v,c]^2 G[t,v,s] G[t,v,s']
@@ -159,6 +175,12 @@ def _epu_tables(pal_pixels, S: int, fused: bool = False):
     bytes a tile at S = 256. Both are built by chunks of tiles whose
     [tiles, S, S] products hold at most ``QUAD_CHUNK`` elements (16,384
     tiles at most), so that G in f32 never stands whole.
+
+    Given the palettes' outer products ``rall`` [P, X] (:func:`_rall`;
+    the table path, :func:`_epu_table`), each chunk's Q rows are
+    multiplied by ``rall.T`` in one float32 GEMM and dropped: returns (G,
+    QR) with QR[t, j] = Q[t] . R[j] [T, P], and no Q stands whole (with
+    Q gone there is nothing to fuse: ``fused`` is False).
 
     With ``fused`` (``epu_fused_fp``) both go into one uint8 table, G's
     bf16 bytes followed by Q's f32 bytes a row, [T, 64 * S * 2 + 4 *
@@ -177,12 +199,14 @@ def _epu_tables(pal_pixels, S: int, fused: bool = False):
         G, Q = _fused_views(table, S)
     else:
         G = torch.empty(T, 64 * S, dtype=torch.bfloat16, device=dev)
-        Q = torch.empty(T, ntri3, dtype=torch.float32, device=dev)
+        Q = torch.empty(T, ntri3 if rall is None else rall.shape[0], dtype=torch.float32,
+                        device=dev)
     chunk = min(IDCT_CHUNK, _quad_chunk(S))
     for i in range(0, T, chunk):
         g = _indicator_dcts(pal_pixels[i:i + chunk], S).to(torch.bfloat16)
         G[i:i + chunk] = g.reshape(g.shape[0], -1)
-        Q[i:i + chunk] = _quad_rows(g.float(), wf2, *tri)
+        q = _quad_rows(g.float(), wf2, *tri)
+        Q[i:i + chunk] = q if rall is None else q @ rall.T
     return (table, None) if fused else (G.reshape(T, 64, S), Q)
 
 
@@ -401,11 +425,16 @@ def _pair_err(Gi, Qi, ftw, Py, Rj):
     """Norm-expansion error of every (candidate tile, candidate palette)
     pair of a chunk of cells, [b, kk * kp]: Q_i . R_j - 2 <C_i, Py_j> with
     C[b, k, s, c] = sum_v Gi[b, k, v, s] ftw[b, v, c]. Gi [b, kk, V, S]
-    float32, Qi [b, kk, X], ftw [b, V, 3], Py [b, kp, S, 3], Rj [b, kp, X]."""
+    float32, ftw [b, V, 3], Py [b, kp, S, 3]. The per-cell path (the CPU,
+    and a card where P > X, :func:`_epu_table`) gives the gathered rows Qi
+    [b, kk, X] and Rj [b, kp, X] and multiplies them here; the table path
+    gives Rj None and Qi the pairs' Q . R entries of the [T, P] table,
+    [b, kk, kp], built once a reconstruct, since that term depends on the
+    tile and the palette alone."""
     b, S = Gi.shape[0], Gi.shape[3]
     C = _cand_products(Gi, ftw)
-    err = torch.bmm(Qi, Rj.transpose(1, 2)) - 2.0 * torch.bmm(C, Py.reshape(b, -1, S * 3)
-                                                               .transpose(1, 2))
+    qr = Qi if Rj is None else torch.bmm(Qi, Rj.transpose(1, 2))
+    err = qr - 2.0 * torch.bmm(C, Py.reshape(b, -1, S * 3).transpose(1, 2))
     return err.reshape(b, -1)
 
 
@@ -475,33 +504,43 @@ def _epu_ordered(S: int, dev) -> bool:
 
 
 def _epu_rank_all(feats, cand_idx, cand_pal, G, Q, pal_yuv, S: int, cell_chunk: int,
-                  counts=None):
+                  counts=None, *, table: bool = False):
     """Cartesian re-rank of (candidate tile, candidate palette) pairs.
 
     Norm expansion: argmin over (i, j) of |rf|^2 - 2 <rf, ft> with
     rf = (G_i @ Py_j) * wf; |rf|^2 = Q_i . R_j. Returns (tile [B],
     pal [B]) int64, tie-break by the smallest packed tile * P + pal.
-    With ``Q`` None, ``G`` is the fused table (``epu_fused_fp``): one
-    gather of its byte rows, split by dtype views into the same bf16 G
-    and f32 Q rows, so the ranking is the default's bit for bit. On the
-    CPU (:func:`_epu_ordered`) the errors that can decide are the JAX
-    package's (:func:`_ordered_pick`, which adds to ``counts``), given
-    its Q (``_epu_tables``)."""
+
+    With ``table`` (:func:`_epu_table`: a card, P <= X) ``Q`` is the
+    [T, P] table QR[t, j] = Q[t] . R[j] (``_epu_tables(..., rall=...)``)
+    and each pair takes its term from it by (tile, palette): a chunk
+    gathers only its G rows and kk * kp table entries, where the per-cell
+    path gathers 394,752 bytes of Q a candidate at S = 256 and multiplies
+    them again for every cell. Otherwise ``Q`` is the Q table, gathered
+    and multiplied by the candidate palettes' R rows per cell; with
+    ``Q`` None, ``G`` is the fused table (``epu_fused_fp``): one gather of
+    its byte rows, split by dtype views into the same bf16 G and f32 Q
+    rows, so the ranking is the default's bit for bit. On the CPU
+    (:func:`_epu_ordered`) the per-cell errors that can decide are the
+    JAX package's (:func:`_ordered_pick`, which adds to ``counts``),
+    given its Q (``_epu_tables``)."""
     dev = feats.device
     B, kk = cand_idx.shape
     kp = cand_pal.shape[1]
     P = pal_yuv.shape[0]
-    ordered = _epu_ordered(S, dev)
+    ordered = _epu_ordered(S, dev) and not table
     w = torch.as_tensor(DCT_WEIGHTS, dtype=torch.float32, device=dev)
     wf = w.permute(1, 2, 0).reshape(64, 3)
-    Rall = _rall(pal_yuv, S)
+    Rall = None if table else _rall(pal_yuv, S)
     tiles, pals = [], []
     for i in range(0, B, cell_chunk):
         f = feats[i:i + cell_chunk]
         ci = cand_idx[i:i + cell_chunk].long()
         cp = cand_pal[i:i + cell_chunk].long()
         b = f.shape[0]
-        if Q is None:
+        if table:
+            Gi, Qi = G[ci], Q[ci[:, :, None], cp[:, None, :]]  # Q . R entries [b, kk, kp]
+        elif Q is None:
             # one gather of whole rows, as 4-byte words (a row is 4 * ntri3
             # + 128 * S bytes; PERF.md section 6); the Q view goes into the
             # product as it is, row stride and all
@@ -510,7 +549,7 @@ def _epu_rank_all(feats, cand_idx, cand_pal, G, Q, pal_yuv, S: int, cell_chunk: 
             Gi, Qi = G[ci], Q[ci]  # [b, kk, 64, S] bf16 (ranking only); [b, kk, 3*ntri]
         Gi = Gi.reshape(b, kk, 64, S).float()
         ftw = _ftw(f, wf).to(torch.bfloat16).float()
-        Py, Rj = pal_yuv[cp], Rall[cp]
+        Py, Rj = pal_yuv[cp], None if table else Rall[cp]
         tile = ci[:, :, None].expand(b, kk, kp).reshape(b, -1)
         pal = cp[:, None, :].expand(b, kk, kp).reshape(b, -1)
         if ordered:
@@ -632,7 +671,9 @@ def _knn_cells(tiles, ctx, kk: int, pal_k: int, epu: bool, kernel: str, cells: i
                                    ctx["pp"], ctx["palettes"], ctx["S"], *ctx["stage1"],
                                    ctx["cell_chunk"], ctx["int16"])
     t, p = _epu_rank_all(feats, idx, cand_pal, ctx["G"], ctx["Q"], ctx["pal_yuv"],
-                         ctx["S"], ctx["cell_chunk"], ctx["counts"])
+                         ctx["S"], ctx["cell_chunk"], ctx["counts"], table=ctx["table"])
+    if ctx["table"]:
+        ctx["table_cells"] += cells
     return t, p, _exact_choice_err(feats, t, p, ctx["pp"], ctx["palettes"], ctx["int16"], z)
 
 
@@ -655,9 +696,18 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict, mesh=
     v1), the IVF's block count (0 without one) and the share of the
     cells' probes that its capacity dropped (the padding of a short row
     not counted) to ``stats``, with the CPU's ordered counts
-    (``ORDERED_COUNTS``, 0 on a card). With ``mesh`` the corpus is sharded over
-    its "corpus" axis: every cell, in groups of frames, takes the exact
-    top-k, and ``knn_backend`` is not read."""
+    (``ORDERED_COUNTS``, 0 on a card) and the cells whose EPU pair errors
+    took Q . R from the [T, P] table (``epu_table_cells``). With ``mesh`` the
+    corpus is sharded over its "corpus" axis: every cell, in groups of
+    frames, takes the exact top-k, and ``knn_backend`` is not read.
+
+    The EPU's tables (unless ``epu_two_stage``, which builds its own): on
+    a card where P <= X = 3 S(S+1)/2 (:func:`_epu_table`, the wide
+    palettes) G and the [T, P] table of Q . R, each Q row dropped once
+    multiplied, so no Q stands (``epu_fused_fp`` then has nothing to
+    fuse); elsewhere (P > X, as the default's 1,024 palettes of 16, where
+    the table would outgrow Q; and the CPU, which sums Q . R per cell in
+    XLA's order) G and Q, or their fused table."""
     F, N = state.n_frames, state.tilemap_size
     dev = state.corpus_pal_pixels.device
     S = settings.palette_size
@@ -684,7 +734,10 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict, mesh=
     kk = min(settings.epu_knn_k, T) if epu else 1
     pal_k = min(settings.epu_pal_k or kk, kk)
     ntri3 = 3 * (S * (S + 1) // 2)
-    # cell_chunk bounds a chunk's gathered rows (Gi, Qi, Rj)
+    table = epu and not settings.epu_two_stage and _epu_table(dev, palettes.shape[0], S)
+    # cell_chunk bounds a chunk's gathered rows (Gi, Qi, Rj), 64 cells at
+    # least; on the table path what it still gathers, the G rows, the f32
+    # copy the product makes of them and the Q . R entries, within 3e8 bytes
     if settings.epu_two_stage:
         # the port holds an f32 copy beside each int8 low-frequency G and
         # int16 Q gather (XLA fuses that conversion into the product), so
@@ -694,6 +747,8 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict, mesh=
     else:
         row = 64 * S * 2 + ntri3 * 4  # the JAX package's formula
     per_cell = kk * row + pal_k * ntri3 * 4
+    if table:
+        per_cell = kk * (64 * S * (2 + 4) + pal_k * 4)
     # the kernels need a card and a corpus much wider than kk buckets, so
     # that the bucket top-2s cover the top-kk (the JAX package's gate)
     kernel = ""
@@ -704,9 +759,10 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict, mesh=
         "ds": ds, "d2": row_sum(ds * ds) if ordered else None, "ordered": ordered,
         "pal_initial": pal_initial, "pp": pp, "palettes": palettes,
         "pal_yuv": rgb_to_yuv(palettes.float()), "S": S,
-        "cell_chunk": max(64, min(4096, int(3e8 / per_cell))),
-        "kernel_cells": 0, "int16": int16, "ivf": None, "ivf_probes": settings.ivf_probes,
-        "ivf_dropped": 0, "ivf_slots": 0, "counts": dict.fromkeys(ORDERED_COUNTS, 0),
+        "cell_chunk": max(1 if table else 64, min(4096, int(3e8 / per_cell))),
+        "table": table, "table_cells": 0, "kernel_cells": 0, "int16": int16, "ivf": None,
+        "ivf_probes": settings.ivf_probes, "ivf_dropped": 0, "ivf_slots": 0,
+        "counts": dict.fromkeys(ORDERED_COUNTS, 0),
     }
     if mesh is not None:
         ctx["mesh"] = mesh
@@ -721,10 +777,10 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict, mesh=
     if epu and settings.epu_two_stage:  # it takes precedence, as in the JAX package
         ctx["two_stage"] = _build_two_stage_tables(pp, S, settings.epu_stage1_dims)
         ctx["stage1"] = (settings.epu_stage1_dims, settings.epu_stage1_m)
-    elif epu and settings.epu_fused_fp:
-        ctx["G"], ctx["Q"] = _epu_tables(pp, S, fused=True)
+    elif table:
+        ctx["G"], ctx["Q"] = _epu_tables(pp, S, rall=_rall(ctx["pal_yuv"], S))
     elif epu:
-        ctx["G"], ctx["Q"] = _epu_tables(pp, S)
+        ctx["G"], ctx["Q"] = _epu_tables(pp, S, fused=settings.epu_fused_fp)
 
     # cell compaction: cells that Reduce marked predicted with a perfect
     # phase-A motion PSNR (euclidean TOL -> 48.13 dB) get only the cheap
@@ -764,6 +820,7 @@ def _knn_phase(state: EncodeState, settings: EncoderSettings, stats: dict, mesh=
             kt[c[:n]], kp[c[:n]], ke[c[:n]] = t[:n], p[:n], e[:n]
     stats["corpus_tiles"] = T
     stats["knn_kernel_cells"] = ctx["kernel_cells"]
+    stats["epu_table_cells"] = ctx["table_cells"]
     stats["ivf_blocks"] = 0 if ctx["ivf"] is None else ctx["ivf"].n_blocks
     stats["ivf_overflow"] = float(ctx["ivf_dropped"]) / max(1, ctx["ivf_slots"])
     stats.update({f"ordered_{k}": v for k, v in ctx["counts"].items()})
