@@ -12,6 +12,11 @@ top-k's keys from fp8 operands for its bfloat16, TF32 on, the EPU
 re-rank's pair errors in bfloat16), and for the first ``--fault-seeds``
 seeds each fault of ``faults.py``: one encode each, judged by the same
 numbers. One JSON line a seed. The benchmark's own runs never run this.
+
+A mesh cell (``chips`` above 1) reads as it runs: a mesh of that many
+ranks over NCCL, one card a rank (``ranks.py``); the mesh's faults and
+controls (``faults.MESH_FAULTS``, ``MESH_CONTROLS``) join the others,
+planted in every rank, and rank 0 judges.
 """
 from __future__ import annotations
 
@@ -23,21 +28,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def one_encode(c: dict, seed: int, device: str) -> dict:
+def one_encode(c: dict, seed: int, device: str, group=None) -> dict:
     """One encode of the cell's clip for ``seed``, judged: {"numbers",
-    "failed", "quality"}."""
+    "failed", "quality"}; on a mesh (``group``) every rank encodes and
+    rank 0 judges (the others return no numbers)."""
     from gtm_bench import clipgen, judge, run, window
     from tiler_tpu_torch.config import EncoderSettings
 
     cfg = c["config"]
+    lead = group is None or group.rank == 0
     clip = clipgen.make_clip(c["traffic"], cfg["frames"], cfg["height"], cfg["width"], seed)
     capture = window.Capture(seed)
-    uninstall = capture.install()
+    uninstall = capture.install() if lead else (lambda: None)
     try:
         win = window.run(EncoderSettings(**cfg["settings"]), clip, cfg["fps"], 1e-3,
-                         run.stream_path(), device, capture, lambda msg: print(msg, file=sys.stderr))
+                         run.stream_path(), device, capture, lambda msg: print(msg, file=sys.stderr),
+                         group)
     finally:
         uninstall()
+    if not lead:
+        return {"numbers": {}, "failed": 0, "quality": {}}
     if not win.encodes[0].ok:
         return {"numbers": {}, "failed": 1, "quality": {}}
     nums, quality, _ = judge.judge(win, clip, capture, device)
@@ -45,29 +55,33 @@ def one_encode(c: dict, seed: int, device: str) -> dict:
 
 
 def readings(c: dict, seeds, control_seeds: int, fault_seeds: int, device: str,
-             controls=None):
+             controls=None, group=None):
     """Yields one record a seed. ``controls`` names the controls to read
     (by default all; on the CPU only those it can run,
-    ``faults.CPU_CONTROLS``)."""
+    ``faults.CPU_CONTROLS``; on a mesh the mesh's too). ``group``: this
+    rank of a mesh (``ranks.Group``)."""
     import torch
 
     from gtm_bench import faults
 
-    names = controls or (faults.CONTROLS if device == "cuda" else faults.CPU_CONTROLS)
-    controls = {k: faults.CONTROLS[k] for k in names}
+    mesh = group is not None
+    names = controls or [*(faults.CONTROLS if device == "cuda" else faults.CPU_CONTROLS),
+                         *(faults.MESH_CONTROLS if mesh else ())]
+    controls = {k: faults.PLANTS[k] for k in names}
+    plants = dict(faults.FAULTS, **(faults.MESH_FAULTS if mesh else {}))
     for i, seed in enumerate(seeds):
-        sound = one_encode(c, seed, device)
+        sound = one_encode(c, seed, device, group)
         rec = {"seed": seed, "sound": sound["numbers"], "failed": sound["failed"],
                "quality": sound["quality"]}
         del sound
-        for key, plants, n in (("control", controls, control_seeds),
-                               ("faults", faults.FAULTS, fault_seeds)):
+        for key, chosen, n in (("control", controls, control_seeds),
+                               ("faults", plants, fault_seeds)):
             if i >= n:
                 continue
             rec[key] = {}
-            for name, plant in plants.items():
+            for name, plant in chosen.items():
                 with plant():
-                    got = one_encode(c, seed, device)
+                    got = one_encode(c, seed, device, group)
                 rec[key][name] = {"numbers": got["numbers"], "failed": got["failed"],
                                   "quality": got["quality"]}
                 del got
@@ -86,7 +100,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
-    from gtm_bench import run
+    from gtm_bench import ranks, run
 
     c = run.load_cell(args.workload)
     run.cache_dirs()
@@ -96,10 +110,21 @@ def main(argv=None) -> int:
         print("control readings are taken on a CUDA device", file=sys.stderr)
         return 2
     seeds = [int(s) for s in args.seeds.split(",")]
+    controls = [n for n in args.controls.split(",") if n]
+    if c["cell"]["chips"] > 1:
+        chips = c["cell"]["chips"]
+        if torch.cuda.device_count() < chips:
+            print(f"this cell's readings take {chips} CUDA devices", file=sys.stderr)
+            return 2
+        job = {"kind": "readings", "cell": c, "seeds": seeds, "control_seeds": args.control_seeds,
+               "fault_seeds": args.fault_seeds, "controls": controls, "device": "cuda",
+               "plants": [], "out": args.out}
+        for rec in ranks.launch(job, chips):
+            print(json.dumps(rec), flush=True)
+        return 0
     out = open(args.out, "a") if args.out else None
     try:
-        for rec in readings(c, seeds, args.control_seeds, args.fault_seeds, "cuda",
-                            [n for n in args.controls.split(",") if n]):
+        for rec in readings(c, seeds, args.control_seeds, args.fault_seeds, "cuda", controls):
             line = json.dumps(rec)
             print(line, flush=True)
             if out:

@@ -11,6 +11,14 @@ restores it on exit.
 - ``slot_altered``: one pixel of the dither kernel's answer is moved to
   another palette slot.
 
+On a mesh (``MESH_FAULTS``), planted in every rank:
+
+- ``shard_left_out``: the corpus-sharded top-k drops the last shard's
+  candidates before its merge, so the picks come from the other shards.
+- ``kmeans_sums_left_out``: the corpus-sharded k-means leaves out its
+  exchange (``parallel.kmeans.psum`` returns the rank's own partial
+  sums), so each rank's centroids are those of its own shard.
+
 The controls (``CONTROLS``) put a lower precision in the program's place,
 the step that would tempt a later change:
 
@@ -23,7 +31,19 @@ the step that would tempt a later change:
   the most of them (on a card: the CPU has no TF32).
 - ``epu_bfloat16``: the EPU re-rank's pair errors from bfloat16 operands
   (on the CPU too: the re-rank then takes the card's path at every
-  palette size).
+  palette size). On the table path (``Rj`` None) the pairs' Q . R entries
+  come in ``Qi``, rounded to bfloat16.
+
+On a mesh (``MESH_CONTROLS``):
+
+- ``sq_dists_bfloat16``: the squared distances of the corpus-sharded
+  top-k and k-means (``parallel.knn.sq_dists``, which ``parallel.kmeans``
+  binds by name) computed in bfloat16, not float32. TF32, the nearest
+  precision below the float32 they state, is ``epu_tf32``: it turns TF32
+  on for every float32 product, theirs among them.
+
+``rank2_raises`` (``PLANTS`` only) makes rank 2 of a mesh raise in the
+middle of its reconstruct, to show that the launcher ends such a run.
 """
 from __future__ import annotations
 
@@ -144,7 +164,8 @@ def epu_bfloat16():
         bf = torch.bfloat16
         C = torch.bmm(Gi.transpose(2, 3).reshape(b, -1, Gi.shape[2]).to(bf), ftw.to(bf))
         C = C.reshape(b, Gi.shape[1], S * 3)
-        err = (torch.bmm(Qi.to(bf), Rj.to(bf).transpose(1, 2)).float()
+        qr = Qi.to(bf) if Rj is None else torch.bmm(Qi.to(bf), Rj.to(bf).transpose(1, 2))
+        err = (qr.float()
                - 2.0 * torch.bmm(C, Py.reshape(b, -1, S * 3).to(bf).transpose(1, 2)).float())
         return err.reshape(b, -1)
 
@@ -156,3 +177,61 @@ def epu_bfloat16():
 CONTROLS = {"tk_bfloat16": tk_bfloat16, "knn_fp8": knn_fp8, "epu_tf32": epu_tf32,
             "epu_bfloat16": epu_bfloat16}
 CPU_CONTROLS = ("tk_bfloat16", "epu_bfloat16")
+
+
+def shard_left_out():
+    import torch
+
+    from tiler_tpu_torch.parallel import knn
+
+    def make(orig):
+        def all_gather_stack(x, mesh, axis):
+            out = orig(x, mesh, axis)
+            if out.is_floating_point():  # the candidates' errors: the last shard's never rank
+                out[-1] = torch.inf
+            return out
+        return all_gather_stack
+
+    return _patched(knn, "all_gather_stack", make)
+
+
+def kmeans_sums_left_out():
+    from tiler_tpu_torch.parallel import kmeans
+
+    return _patched(kmeans, "psum", lambda orig: lambda x, mesh, axis: x)
+
+
+@contextlib.contextmanager
+def sq_dists_bfloat16():
+    import torch
+
+    from tiler_tpu_torch.parallel import kmeans, knn
+
+    def sq_dists(x, y, y2=None):
+        xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+        yy = (yb * yb).sum(dim=1) if y2 is None else y2.to(torch.bfloat16)
+        return ((xb * xb).sum(dim=1, keepdim=True) - 2.0 * (xb @ yb.T) + yy).float()
+
+    with _patched(knn, "sq_dists", lambda orig: sq_dists), \
+            _patched(kmeans, "sq_dists", lambda orig: sq_dists):
+        yield
+
+
+def rank2_raises():
+    import torch.distributed as dist
+
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+
+    def make(orig):
+        def reconstruct(self):
+            if dist.get_rank() == 2:
+                raise RuntimeError("planted: rank 2 raises in reconstruct")
+            return orig(self)
+        return reconstruct
+
+    return _patched(Encoder, "reconstruct", make)
+
+
+MESH_FAULTS = {"shard_left_out": shard_left_out, "kmeans_sums_left_out": kmeans_sums_left_out}
+MESH_CONTROLS = {"sq_dists_bfloat16": sq_dists_bfloat16}
+PLANTS = {**FAULTS, **CONTROLS, **MESH_FAULTS, **MESH_CONTROLS, "rank2_raises": rank2_raises}

@@ -17,6 +17,14 @@ window, each held to the limit of ``limits/<workload>.json``.
 - ``knn_gap``: the widest normalized gap of the top-k kernel's picks
   against float64 distances on the same operands (``reference/knn.py``),
   over a seeded sample of its launches; in cells where it launches.
+- ``mesh_topk_gap``: the widest normalized gap of the mesh's corpus-sharded
+  exact top-k (rank 0's picks, merged over every shard) against the k
+  nearest rows of the whole corpus in float64 (``reference/knn.py``),
+  over a seeded sample of the rows of its calls; in mesh cells.
+- ``kmeans_gap``: the widest normalized gap of the mesh's corpus-sharded
+  k-means (rank 0's assignments, gathered over every shard) against each
+  point's nearest returned centroid in float64 (``reference/knn.py``),
+  over every point of the palettization's first k-means; in mesh cells.
 - ``epu_gap``: the widest normalized gap of the EPU re-rank's picks
   against float64 errors of every candidate pair in the precision the
   re-rank states (``reference/epu.py``), over a seeded sample of
@@ -30,7 +38,7 @@ import torch
 from .reference import epu, gtm_decode, knn, psnr_hvs, tk
 
 ORDER = ("stream_errors", "decode_vs_state_px", "hvs_mse", "tk_slots_off", "knn_gap",
-         "epu_gap")
+         "mesh_topk_gap", "kmeans_gap", "epu_gap")
 EPU_CELLS = 256
 
 
@@ -84,6 +92,15 @@ def judge(window, clip, capture, device: str) -> tuple[dict, dict, list]:
         nums["knn_gap"] = max(gaps)
         notes.append("knn_gap by sampled launch: " + ", ".join(
             f"#{i} {g:.6g}" for (i, *_), g in zip(capture.knn, gaps)))
+    if capture.topk and capture.topk_corpus is not None:
+        feats, picks = (torch.cat(parts) for parts in zip(*capture.topk))
+        nums["mesh_topk_gap"] = knn.topk_gap(feats, picks, capture.topk_corpus)
+        notes.append(f"mesh_topk_gap over {len(feats)} rows of {len(capture.topk)} calls, "
+                     f"k {picks.shape[1]}, against {len(capture.topk_corpus)} corpus rows")
+    if capture.kmeans is not None:
+        points, cents, assign = capture.kmeans
+        nums["kmeans_gap"] = knn.kmeans_gap(points, cents, assign)
+        notes.append(f"kmeans_gap over {len(points)} points, {len(cents)} centroids")
     if capture.epu and capture.epu_corpus is not None:
         cells = capture.epu_cells(EPU_CELLS)
         nums["epu_gap"] = epu.gap(*cells, *capture.epu_corpus)

@@ -1,4 +1,4 @@
-"""Runs one benchmark cell of tiler_tpu_torch once on one NVIDIA card.
+"""Runs one benchmark cell of tiler_tpu_torch once on its NVIDIA cards.
 
     python3 gtm_bench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
@@ -16,6 +16,11 @@ per-layer ones), ``device``, with ``--trace 1`` ``breakdown``, and last
 ``checks``, each compared number beside its limit, which also end
 standard error. Without a card, or with fewer than the cell asks for, it
 exits 2 and prints no result.
+
+A cell whose ``chips`` is 1 runs in this process. One whose ``chips`` is
+N > 1 (its configuration says ``"mesh": "auto"``) runs as a mesh of N
+ranks, one process a card (``ranks.py``); set-up then counts from this
+process's start, and rank 0 reports.
 """
 from __future__ import annotations
 
@@ -98,10 +103,23 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+def mesh_mismatch(c: dict) -> str:
+    """Why the cell's ``chips`` and its configuration's ``"mesh"`` key
+    disagree, or "": a mesh exactly when ``chips`` is above 1."""
+    chips, mesh = c["cell"]["chips"], c["config"].get("mesh")
+    if (chips > 1) != (mesh is not None) or mesh not in (None, "auto"):
+        return f"cell {c['cell']['name']!r} asks for {chips} chip(s), its configuration's mesh is {mesh!r}"
+    return ""
+
+
 def run_cell(c: dict, seed: int, seconds: float, trace_on: bool, device: str = "cuda",
-             log=lambda msg: print(msg, file=sys.stderr)) -> tuple[dict, list]:
+             log=lambda msg: print(msg, file=sys.stderr), group=None,
+             since: float | None = None):
     """One run of the cell ``c`` (:func:`load_cell`): (result line as a
-    dict, lines for standard error). ``device="cpu"`` serves the tests."""
+    dict, lines for standard error). ``device="cpu"`` serves the tests.
+    ``group`` (``ranks.Group``): this rank of a mesh run, which returns
+    None on every rank but 0; ``since``: the wall time set-up counts from,
+    where it is not this process's start."""
     import torch
 
     if str(ROOT) not in sys.path:
@@ -110,24 +128,43 @@ def run_cell(c: dict, seed: int, seconds: float, trace_on: bool, device: str = "
     from tiler_tpu_torch.config import EncoderSettings
 
     cfg = c["config"]
+    mesh = group.mesh if group is not None else None
+    lead = group is None or group.rank == 0
     settings = EncoderSettings(**cfg["settings"])
     clip = clipgen.make_clip(c["traffic"], cfg["frames"], cfg["height"], cfg["width"], seed)
     path = stream_path()
     capture = window.Capture(seed)
-    uninstall = capture.install()
+    uninstall = capture.install() if lead else (lambda: None)
     try:
-        window.encode_once(settings, clip, cfg["fps"], path, device)  # warm-up
+        window.encode_once(settings, clip, cfg["fps"], path, device, mesh)  # warm-up
         if device == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        setup_s = time.perf_counter() - T_START
+        if group is not None:
+            group.gather(None)  # every rank has warmed up
+        setup_s = time.perf_counter() - T_START if since is None else time.time() - since
         prof = trace.start() if trace_on else None
-        win = window.run(settings, clip, cfg["fps"], seconds, path, device, capture, log)
+        win = window.run(settings, clip, cfg["fps"], seconds, path, device, capture, log, group)
         tr = trace.reduce(prof, win, window.STEPS) if prof is not None else None
     finally:
         uninstall()
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     found = forbidden_modules()
+    by_rank = []
+    busy_s = tr.busy_s if tr is not None else None
+    if group is not None:
+        per_rank = group.gather((peak, found, len(win.encodes), tr.busy_s if tr else None))
+        if found:
+            raise SystemExit(f"rank {group.rank} loaded {found}, which the benchmark may not import")
+        if not lead:
+            return None
+        by_rank = [n for _, _, n, _ in per_rank]
+        if len(set(by_rank)) != 1:
+            raise SystemExit(f"the ranks ran {by_rank} encodes: the window was not in lockstep")
+        peak = max(r[0] for r in per_rank)  # the fullest card
+        found = sorted({m for r in per_rank for m in r[1]})
+        if tr is not None:  # the device's busy seconds: the mean over the ranks' cards
+            busy_s = sum(r[3] for r in per_rank) / len(per_rank)
     if found:
         raise SystemExit(f"the run loaded {found}, which the benchmark may not import")
 
@@ -147,11 +184,12 @@ def run_cell(c: dict, seed: int, seconds: float, trace_on: bool, device: str = "
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     kind = torch.cuda.get_device_name() if device == "cuda" else "cpu"
-    dev = {"platform": "gpu" if device == "cuda" else device, "kind": kind, "count": 1,
+    dev = {"platform": "gpu" if device == "cuda" else device, "kind": kind,
+           "count": group.size if group is not None else 1,
            "memory_peak_bytes": peak, "power_limit_w": roofline.power_limit_w()
            if device == "cuda" else None}
     if tr is not None:
-        dev.update(busy_s=tr.busy_s, window_s=tr.window_s)
+        dev.update(busy_s=busy_s, window_s=tr.window_s)
     line = {"correct": correct, "attempted": attempted, "failed": failed,
             "metrics": metrics, "device": dev}
     if tr is not None:
@@ -159,6 +197,8 @@ def run_cell(c: dict, seed: int, seconds: float, trace_on: bool, device: str = "
     line["checks"] = checks
     lines = [f"encode {i}: {e.spans['save'][1] - e.spans['load'][0]:.4f} s, " + ", ".join(
         f"{step} {b - a:.4f}" for step, (a, b) in e.spans.items()) for i, e in enumerate(run.encodes)]
+    if by_rank:
+        lines.append(f"encodes by rank: {by_rank}")
     lines += notes + [f"check {name}: {v['value']} (limit {v['limit']})" for name, v in checks.items()]
     return line, lines
 
@@ -179,7 +219,23 @@ def main(argv=None) -> int:
         print(f"this cell needs {need} CUDA device(s); found "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
-    line, lines = run_cell(c, args.seed, args.seconds, bool(args.trace))
+    if mesh_mismatch(c):
+        print(mesh_mismatch(c), file=sys.stderr)
+        return 2
+    if need == 1:
+        line, lines = run_cell(c, args.seed, args.seconds, bool(args.trace))
+    else:
+        if str(ROOT) not in sys.path:
+            sys.path.insert(0, str(ROOT))
+        from gtm_bench import ranks
+
+        started = time.time() - (time.perf_counter() - T_START)
+        line, lines = ranks.run_mesh(c, args.seed, args.seconds, bool(args.trace),
+                                     since=started)
+        if forbidden_modules():  # the launcher prints the result: its own modules count too
+            print(f"the launcher loaded {forbidden_modules()}, which the benchmark may not "
+                  "import", file=sys.stderr)
+            return 1
     sys.stdout.flush()
     print("\n".join(lines), file=sys.stderr, flush=True)
     print(json.dumps(line), flush=True)

@@ -5,7 +5,7 @@ reads the same at each cell's own size."""
 import pytest
 import torch
 
-from gtm_bench import control
+from gtm_bench import control, faults
 from gtm_bench.reference import epu, knn, tk
 from tiler_tpu_torch.kernels import knn_topk, tk_dither
 from tiler_tpu_torch.ops.color import rgb_to_yuv
@@ -74,3 +74,37 @@ def test_epu_gap_small_for_the_program_picks_large_for_others(S):
     p2 = cand_pal[torch.arange(B), worst]
     assert epu.gap(feats, idx, cand_pal, t2, p2, pp, palettes) > 1e-3
     assert epu.gap(feats, idx, cand_pal, torch.full_like(t, T + 1), p, pp, palettes) == 1.0
+
+
+def test_epu_bfloat16_control_on_the_table_path():
+    # the card's path where P <= X: Rj is None and the pairs' Q . R entries
+    # come in Qi; the control rounds them to bfloat16 instead of raising
+    S, T, P, B, kk = 16, 200, 6, 40, 8
+    g = torch.Generator().manual_seed(5)
+    pp = torch.randint(0, S, (T, 8, 8), generator=g, dtype=torch.uint8)
+    palettes = torch.randint(0, 256, (P, S, 3), generator=g, dtype=torch.uint8)
+    pal_initial = torch.randint(0, P, (T,), generator=g)
+    cells = torch.randint(0, 256, (B, 8, 8, 3), generator=g).float()
+    _, feats = reconstruct._features(cells, False)
+    idx = torch.stack([torch.randperm(T, generator=g)[:kk] for _ in range(B)])
+    cand_pal = pal_initial[idx]
+    pal_yuv = rgb_to_yuv(palettes.float())
+    G, QR = reconstruct._epu_tables(pp, S, rall=reconstruct._rall(pal_yuv, S))
+    assert QR.shape == (T, P)
+    t, p = reconstruct._epu_rank_all(feats, idx, cand_pal, G, QR, pal_yuv, S, 16, table=True)
+    with faults.CONTROLS["epu_bfloat16"]():
+        t2, p2 = reconstruct._epu_rank_all(feats, idx, cand_pal, G, QR, pal_yuv, S, 16,
+                                           table=True)
+    sound = epu.gap(feats, idx, cand_pal, t, p, pp, palettes)
+    low = epu.gap(feats, idx, cand_pal, t2, p2, pp, palettes)
+    assert sound < 1e-5 < low
+
+
+def test_kmeans_gap_zero_for_the_nearest_large_for_others():
+    g = torch.Generator().manual_seed(7)
+    points, cents = torch.randn(300, 12, generator=g), torch.randn(20, 12, generator=g)
+    near = torch.cdist(points.double(), cents.double()).argmin(dim=1).to(torch.int32)
+    assert knn.kmeans_gap(points, cents, near, rows_at_once=64) == 0.0
+    far = torch.cdist(points.double(), cents.double()).argmax(dim=1).to(torch.int32)
+    assert knn.kmeans_gap(points, cents, far, rows_at_once=64) > 1e-2
+    assert knn.kmeans_gap(points, cents, torch.full_like(near, 20)) == 1.0

@@ -42,7 +42,8 @@ def test_names_units_and_lines():
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_every_cell_finds_its_files(cell):
     c = run.load_cell(cell)
-    assert c["cell"]["chips"] == 1
+    assert c["cell"]["chips"] in (1, 4)
+    assert ("mesh" in c["config"]) == (c["cell"]["chips"] > 1) and not run.mesh_mismatch(c)
     cfg = c["config"]
     assert cfg["name"] == c["cell"]["config"] and set(cfg["reduced"]) == set(
         next(x for x in SPEC["configs"] if x["name"] == cfg["name"])["reduced"])
@@ -51,6 +52,20 @@ def test_every_cell_finds_its_files(cell):
     for m in c["end_to_end"] + c["per_layer"]:
         assert callable(run.reader(m["name"]))
     assert c["limits"] and all(v >= 0 for v in c["limits"].values())
+
+
+def test_at_most_a_quarter_of_the_cells_take_four_cards():
+    cells = SPEC["workloads"]
+    assert sum(w["chips"] == 4 for w in cells) <= max(1, len(cells) // 4)
+
+
+def test_the_launcher_refuses_a_mesh_that_disagrees_with_chips():
+    c = run.load_cell("default.mesh4.720p32")
+    assert not run.mesh_mismatch(c)
+    assert run.mesh_mismatch(dict(c, cell=dict(c["cell"], chips=1)))
+    one = run.load_cell("default.retro.720p32")
+    assert run.mesh_mismatch(dict(one, config=dict(one["config"], mesh="auto")))
+    assert run.mesh_mismatch(dict(c, config=dict(c["config"], mesh="data")))
 
 
 def test_every_config_is_used_and_lies_under_paths():

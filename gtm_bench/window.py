@@ -1,11 +1,16 @@
 """The measured window: a closed loop of whole encodes of one clip, one
 after another, each a new ``Encoder`` whose steps are called one by one in
 ``run_all``'s order with a span (host clock) around each. An encode that
-starts before the deadline finishes and counts.
+starts before the deadline finishes and counts. On a mesh every rank runs
+the loop, and rank 0's clock decides for all of them whether the next
+encode starts (``agree``), so each rank runs the same encodes and none is
+left waiting in a collective that the others have left.
 
 :class:`Capture` keeps, for the window's first encode, what the dither
-kernel, a seeded sample of the top-k kernel's launches and a seeded sample
-of the cells of the EPU re-rank were given and returned, so the reference
+kernel, a seeded sample of the top-k kernel's launches, a seeded sample
+of the rows of the mesh's sharded top-k, the points, centroids and
+assignments of the mesh's sharded k-means, and a seeded sample of the
+cells of the EPU re-rank were given and returned, so the reference
 can judge them on the timed encode's own inputs after the window; and the
 first encode's final tilemap, tiles and palettes, which its stream has to
 carry.
@@ -26,20 +31,29 @@ STEPS = ("load", "predict_motion", "reduce", "prepare_palettes", "dither",
 
 class Capture:
     """Observes ``tk_select`` (as the dither step calls it), the B2 kernel
-    ``knn_bucket_top2`` and the EPU re-rank ``_epu_rank_all`` (with the
-    corpus and palettes that phase A starts from) while :attr:`active`."""
+    ``knn_bucket_top2``, the mesh's ``sharded_topk`` (with the whole corpus
+    its shards are cut from) and ``sharded_kmeans`` (as the palettization
+    calls it), and the EPU re-rank ``_epu_rank_all`` (with
+    the corpus and palettes that phase A starts from) while :attr:`active`.
+    On a mesh only rank 0 installs it."""
 
-    def __init__(self, seed: int, knn_samples: int = 2, epu_cells: int = 32):
+    def __init__(self, seed: int, knn_samples: int = 2, epu_cells: int = 32,
+                 topk_rows: int = 16):
         self.active = False
         self.tk = None  # (pix, mirror, pal_idx, table, slots)
         self.knn = []  # [(launch number, fa, dsTa, k1, k2)]
         self.knn_launches = []  # [(rows, tiles padded, real rows: device scalar)]
         self.epu = []  # [(feats, cand_idx, cand_pal, tile, pal)] of sampled cells, a launch each
         self.epu_corpus = None  # (corpus palette indices, palettes RGB) phase A ranked
+        self.topk = []  # [(feats, picks)] of sampled rows, a call each
+        self.topk_corpus = None  # the corpus features the shards are cut from
+        self.kmeans = None  # (points, centroids, assignments) of the sharded k-means
         self._rng = random.Random(seed)
         self._np_rng = np.random.RandomState(seed % (1 << 32))
         self._keep = knn_samples
         self._epu_cells = epu_cells
+        self._topk_rows = topk_rows
+        self._topk_rng = np.random.RandomState((seed + 1) % (1 << 32))
 
     def install(self):
         """Wrap the kernels and the re-rank; returns a function that
@@ -47,10 +61,12 @@ class Capture:
         import torch
 
         from tiler_tpu_torch.kernels import knn_topk
-        from tiler_tpu_torch.pipeline import dither, reconstruct
+        from tiler_tpu_torch.pipeline import dither, palettes, reconstruct
 
         tk_orig, knn_orig = dither.tk_select, knn_topk.knn_bucket_top2
         phase_orig, epu_orig = reconstruct._knn_phase, reconstruct._epu_rank_all
+        shard_orig, topk_orig = reconstruct.mesh_corpus_shard, reconstruct.sharded_topk
+        kmeans_orig = palettes.sharded_kmeans
 
         def knn_phase(state, *args, **kw):
             if self.active and self.epu_corpus is None:
@@ -67,6 +83,26 @@ class Capture:
                     n, min(n, self._epu_cells), replace=False)), device=feats.device)
                 self.epu.append((feats[sel], cand_idx[sel], cand_pal[sel], t[sel], p[sel]))
             return t, p
+
+        def mesh_corpus_shard(ds, mesh):
+            if self.active and self.topk_corpus is None:
+                self.topk_corpus = ds
+            return shard_orig(ds, mesh)
+
+        def sharded_topk(feats, ds, k, mesh, *args, **kw):
+            idx, err = topk_orig(feats, ds, k, mesh, *args, **kw)
+            if self.active:
+                n = feats.shape[0]
+                sel = torch.as_tensor(np.sort(self._topk_rng.choice(
+                    n, min(n, self._topk_rows), replace=False)), device=feats.device)
+                self.topk.append((feats[sel].clone(), idx[sel].clone()))
+            return idx, err
+
+        def sharded_kmeans(points, k, **kw):
+            cents, assign, d2 = kmeans_orig(points, k, **kw)
+            if self.active and self.kmeans is None:
+                self.kmeans = (points, cents, assign)
+            return cents, assign, d2
 
         def tk_select(pix, mirror, pal_idx, table):
             out = tk_orig(pix, mirror, pal_idx, table)
@@ -95,6 +131,9 @@ class Capture:
         knn_topk.knn_bucket_top2 = knn_bucket_top2
         reconstruct._knn_phase = knn_phase
         reconstruct._epu_rank_all = epu_rank_all
+        reconstruct.mesh_corpus_shard = mesh_corpus_shard
+        reconstruct.sharded_topk = sharded_topk
+        palettes.sharded_kmeans = sharded_kmeans
 
         def uninstall():
             dither.tk_select = tk_orig
@@ -102,6 +141,9 @@ class Capture:
             knn_topk.knn_bucket_top2 = knn_orig
             reconstruct._knn_phase = phase_orig
             reconstruct._epu_rank_all = epu_orig
+            reconstruct.mesh_corpus_shard = shard_orig
+            reconstruct.sharded_topk = topk_orig
+            palettes.sharded_kmeans = kmeans_orig
 
         return uninstall
 
@@ -143,11 +185,12 @@ class Window:
         return self.end - self.start
 
 
-def encode_once(settings, clip, fps: float, path: str, device: str):
-    """One whole encode with a span around each step: (encoder, spans)."""
+def encode_once(settings, clip, fps: float, path: str, device: str, mesh=None):
+    """One whole encode with a span around each step: (encoder, spans).
+    ``mesh``: this rank's DeviceMesh, on a mesh (every rank calls this)."""
     from tiler_tpu_torch.pipeline.encoder import Encoder
 
-    enc = Encoder(settings, log=None, device=device)
+    enc = Encoder(settings, log=None, device=device, mesh=mesh)
     calls = {"load": lambda: enc.load_frames(clip, fps), "save": lambda: enc.save(path)}
     spans = {}
     for step in STEPS:
@@ -167,26 +210,40 @@ def final_state(enc) -> dict:
 
 
 def run(settings, clip, fps: float, seconds: float, path: str, device: str,
-        capture: Capture, log) -> Window:
+        capture: Capture, log, group=None) -> Window:
+    """The window. ``group`` (``ranks.Group``): this rank of a mesh, where
+    every rank takes rank 0's decision whether the next encode starts,
+    only the rank that writes reads the stream, and an encode that raises
+    ends the run, since the other ranks would wait for it in a collective."""
+    mesh = group.mesh if group is not None else None
     encodes, streams = [], {}
     first_sha, first_state = "", None
     wall_offset = time.time_ns() - time.perf_counter_ns()
     start = time.perf_counter()
     deadline = start + seconds
     end = start
-    while time.perf_counter() < deadline:
+    while True:
+        go = time.perf_counter() < deadline
+        if group is not None:
+            go = group.agree(go)
+        if not go:
+            break
         capture.active = not first_sha
         try:
-            enc, spans = encode_once(settings, clip, fps, path, device)
-            with open(path, "rb") as fh:
-                data = fh.read()
-            sha = hashlib.sha256(data).hexdigest()
-            streams.setdefault(sha, data)
-            if not first_sha:
-                first_sha, first_state = sha, final_state(enc)
+            enc, spans = encode_once(settings, clip, fps, path, device, mesh)
+            sha = ""
+            if enc.writes:
+                with open(path, "rb") as fh:
+                    data = fh.read()
+                sha = hashlib.sha256(data).hexdigest()
+                streams.setdefault(sha, data)
+                if not first_sha:
+                    first_sha, first_state = sha, final_state(enc)
             encodes.append(Encode(True, spans, dict(enc.step_stats), sha))
             del enc
-        except Exception:  # an encode that raises counts as failed; the window goes on
+        except Exception:  # one process: the encode counts as failed, the window goes on
+            if group is not None:
+                raise
             encodes.append(Encode(False, error=traceback.format_exc()))
             log(encodes[-1].error)
         finally:
