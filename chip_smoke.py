@@ -27,7 +27,14 @@ Run from the repository root:  python3 chip_smoke.py
      64 x K bf16), bit-identical at every depth the motion ranking reaches,
      K = 3 r^2 = 192, 147, 108, 75, 48, 27, 12, 3, each timed beside its
      plain version, permute+contiguous and its byte bound (the kernels
-     line: K = 192, and every depth under "shapes").
+     line: K = 192, and every depth under "shapes");
+   - yl2_select: Yliluoma2's plan search, mixed 4, at the wide cell's
+     launch (T = 36,307, P = 16, S = 256, full palettes) and at the
+     default clip's Yliluoma2 encode's (T = 116,097, P = 1,024, S = 16,
+     a tenth of the slots invalid), on random tiles and palettes, each
+     bit-identical to its plain passes with the same trial count, timed
+     beside them and its bound (4 trials a valid color, 28 integer
+     operations each, at the fp32 rate); ptxas's registers.
 4. Encodes a 1280x720x32 synthetic clip (utils/clips.synthetic_clip)
    through Encoder(settings, device="cuda").run_all on two paths, each
    with every kernel's launch count set to 0 just before and read just
@@ -36,8 +43,9 @@ Run from the repository root:  python3 chip_smoke.py
    knn_bucket_top2_v1 and tk_select must run). On each the corpus must
    reach the top-k kernels' gate (T >= 65,536) and the stream must decode
    to 32 frames whose first frame re-renders exactly from the encoder
-   state. A third path, dithering_use_thomas_knoll=False (Yliluoma2, plain
-   tensor passes), must launch tk_select 0 times and B2 57 times. The first
+   state. A third path, dithering_use_thomas_knoll=False (Yliluoma2, the
+   yl2_select kernel), must launch yl2_select once, tk_select 0 times and
+   B2 57 times. The first
    two encodes must see T = 116,097 and launch the kernels as
    many times as before (default: tk_select 1, B2 57; im2row_v1:
    tk_select 1, v1 57, blockify 32), and land within 0.1 dB PSNR-HVS and
@@ -69,8 +77,9 @@ Run from the repository root:  python3 chip_smoke.py
    both ditherers and with research, with and without int16: RGB-PSNR
    within 0.1 dB and
    bytes within 2%; the
-   Yliluoma2 dither of one state on the card and on the CPU is
-   bit-identical.
+   Yliluoma2 dither of one state on the card (the yl2_select kernel) and
+   on the CPU (the plain passes) is bit-identical, at S = 16 and at
+   S = 256.
 7. Writes a planar 4:2:0 y4m of a CIF clip and encodes it through
    Encoder.load_video on the card: at scaling=1 the ingested frames are
    bit-identical to the host's y4m ingest; at scaling=2 they have the
@@ -230,7 +239,7 @@ REF_ENCODES = {"default": (23.8951, 2266737), "im2row_v1": (24.2291, 2324547),
 EXPECT_LAUNCHES = {"default": {"tk_select": 1, "knn_bucket_top2": 57},
                    "im2row_v1": {"tk_select": 1, "knn_bucket_top2_v1": 57,
                                  "blockify_field": 32},
-                   "yliluoma2": {"tk_select": 0, "knn_bucket_top2": 57},
+                   "yliluoma2": {"tk_select": 0, "yl2_select": 1, "knn_bucket_top2": 57},
                    "research_int16": {"tk_select": 1},
                    "host_stream": {"tk_select": 1, "knn_bucket_top2": 57},
                    "spill": {"tk_select": 1, "knn_bucket_top2": 57},
@@ -461,6 +470,67 @@ def check_tk_wide(torch, dev, launches):
         torch.cuda.empty_cache()
     return {**{k: shapes[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by")},
+            "library_ms": None, "registers": res and res["registers"],
+            "spill_bytes": res and res["spill_store_bytes"] + res["spill_load_bytes"],
+            "shapes": shapes}
+
+
+# yl2_select: its launches (T, P, S, valid share) on the two paths that
+# take it, the wide cell's (full palettes of 256) and the default clip's
+# Yliluoma2 encode (the main path's corpus, 1,024 palettes of 16, some
+# slots invalid), and the plan size; the least trials a color of a plan
+# of 4 (rounds at 0, 1 and 2 entries) and the integer operations a trial
+# (7 on each of 4 lanes)
+YL2_LAUNCHES = ((36307, 16, 256, 1.0), (CORPUS_T, 1024, 16, 0.9))
+YL2_MIXED, YL2_LEAST_TRIALS, YL2_OPS = 4, 4, 28.0
+
+
+def check_yl2(torch, dev):
+    """yl2_select at each of YL2_LAUNCHES on random tiles and palettes:
+    bit-identical to its plain passes on the card, the trials counted
+    alike, timed beside the bound (the least trials a plan of 4 needs,
+    YL2_OPS integer operations each at the fp32 rate, or 4 bytes a
+    pixel). The figures are the wide launch's, every launch's under
+    "shapes"."""
+    from tiler_tpu_torch.kernels import _build
+    from tiler_tpu_torch.kernels import yl2_dither as yl
+
+    shapes = []
+    for T, P, S, share in YL2_LAUNCHES:
+        pix, mirror, pidx, table = _tk_random(torch, dev, T, P, S, 7, valid=share)
+        pal4 = table[..., :4].contiguous()
+        pal4[..., 3] //= 1000
+        valid = table[..., 4] > 0
+        got, trials = yl.yl2_select(pix, mirror, pidx, pal4, valid, YL2_MIXED)
+        want, want_trials = yl.yl2_select_plain(pix, mirror, pidx, pal4, valid, YL2_MIXED)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        if bad or int(trials) != int(want_trials):
+            raise AssertionError(f"yl2_select differs from its plain passes at T={T} P={P} "
+                                 f"S={S} ({bad} pixels; trials {int(trials)} and "
+                                 f"{int(want_trials)})")
+        ms = cuda_ms(lambda: yl.yl2_select(pix, mirror, pidx, pal4, valid, YL2_MIXED), 10)
+        plain_ms = cuda_ms(lambda: yl.yl2_select_plain(pix, mirror, pidx, pal4, valid,
+                                                       YL2_MIXED), 1)
+        px = T * 64
+        colors = 64 * float(valid.sum(dim=1)[pidx.long()].sum())
+        bms, by = bound_ms(4 * px + 5 * T, YL2_OPS * YL2_LEAST_TRIALS * colors, FP32_OPS)
+        print(f"yl2_select: {T} tiles P={P} S={S} ({share:.0%} of the slots valid) mixed "
+              f"{YL2_MIXED}: bit-identical, {int(trials) / colors:.3f} trials a pixel and "
+              f"valid color; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bms:.4f} ms "
+              f"({by}), {bms / ms:.1%} of the bound", flush=True)
+        shapes.append({"T": T, "P": P, "S": S, "valid": share, "mixed": YL2_MIXED,
+                       "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by})
+        del pix, mirror, pidx, table, pal4, valid, got, want
+        torch.cuda.empty_cache()
+    used = _build.kernel_resources("yl2_select_kernel")
+    res = used[0] if used else None
+    print("yl2_select: " + (f"ptxas: {res['registers']} registers, {res['spill_store_bytes']} "
+                            f"/ {res['spill_load_bytes']} bytes of spill stores / loads" if res
+                            else "ptxas: not built here"), flush=True)
+    return {**{key: shapes[0][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by")},
             "library_ms": None, "registers": res and res["registers"],
             "spill_bytes": res and res["spill_store_bytes"] + res["spill_load_bytes"],
             "shapes": shapes}
@@ -939,30 +1009,37 @@ def small_clip_agreement(**overrides):
 
 
 def yliluoma2_dither_agreement():
-    """One state (the small clip up to its palettes, made on the CPU)
-    dithered with Yliluoma2 on the card and on the CPU: all int32, so the
-    palette pixels must be bit-identical."""
+    """One state of the small clip up to its palettes (made on the CPU),
+    at 16 and at 256 colors, dithered with Yliluoma2 on the card (the
+    yl2_select kernel, one launch) and on the CPU (the plain passes): all
+    int32, so the palette pixels must be bit-identical."""
     import copy
 
     import torch
 
     from tiler_tpu_torch.config import EncoderSettings
+    from tiler_tpu_torch.kernels import yl2_dither
     from tiler_tpu_torch.models.convert import state_from_numpy, state_to_numpy
     from tiler_tpu_torch.pipeline import dither
     from tiler_tpu_torch.pipeline.encoder import Encoder
     from tiler_tpu_torch.utils.clips import synthetic_clip
 
-    settings = EncoderSettings(**SMALL, dithering_use_thomas_knoll=False)
-    enc = Encoder(settings, device="cpu", log=None)
-    enc.load_frames(synthetic_clip(6, 64, 96), 25.0)
-    enc.predict_motion().reduce().prepare_palettes()
-    snap = state_to_numpy(copy.copy(enc.state))
-    got = {dev: dither.dither(state_from_numpy(copy.copy(snap), dev), settings)
-           .corpus_pal_pixels.cpu() for dev in ("cuda", "cpu")}
-    if not torch.equal(got["cuda"], got["cpu"]):
-        raise AssertionError("the Yliluoma2 dither on the card differs from the CPU's")
-    print(f"Yliluoma2 dither of {len(got['cpu'])} tiles: card and CPU bit-identical",
-          flush=True)
+    for size in (16, 256):
+        settings = EncoderSettings(**SMALL, palette_size=size, dithering_use_thomas_knoll=False)
+        enc = Encoder(settings, device="cpu", log=None)
+        enc.load_frames(synthetic_clip(6, 64, 96), 25.0)
+        enc.predict_motion().reduce().prepare_palettes()
+        snap = state_to_numpy(copy.copy(enc.state))
+        before = yl2_dither.yl2_select.launches
+        got = {dev: dither.dither(state_from_numpy(copy.copy(snap), dev), settings)
+               .corpus_pal_pixels.cpu() for dev in ("cuda", "cpu")}
+        if yl2_dither.yl2_select.launches != before + 1:
+            raise AssertionError("the Yliluoma2 dither on the card did not launch yl2_select once")
+        if not torch.equal(got["cuda"], got["cpu"]):
+            raise AssertionError(f"the Yliluoma2 dither on the card differs from the CPU's "
+                                 f"at S = {size}")
+        print(f"Yliluoma2 dither of {len(got['cpu'])} tiles at S = {size}: the card's kernel "
+              "and the CPU's plain passes bit-identical", flush=True)
 
 
 def write_y4m_420(path, frames, fps):
@@ -1724,7 +1801,7 @@ def main() -> int:
         raise AssertionError("the top-k kernels' SASS holds no tensor-core MMA (HGMMA)")
     checks = {"tk_select": check_tk(torch, dev), "knn_bucket_top2": check_knn(torch, dev),
               "knn_bucket_top2_v1": check_knn_v1(torch, dev),
-              "blockify_field": check_blockify(torch, dev)}
+              "blockify_field": check_blockify(torch, dev), "yl2_select": check_yl2(torch, dev)}
     torch.cuda.empty_cache()
     # determinism: the two default encodes must write the same stream
     default = encode_path("default", EncoderSettings(), ("tk_select", "knn_bucket_top2"),
@@ -1750,9 +1827,9 @@ def main() -> int:
     if im2row_v1["psnr_hvs_db"] < default["psnr_hvs_db"] - 0.1:
         raise AssertionError("the im2row / pallas_v1 encode lost quality against the default")
     torch.cuda.empty_cache()
-    # the other ditherer: plain tensor passes, no tk_select launch
+    # the other ditherer: the yl2_select kernel, no tk_select launch
     yliluoma2 = encode_path("yliluoma2", EncoderSettings(dithering_use_thomas_knoll=False),
-                            ("knn_bucket_top2",))
+                            ("knn_bucket_top2", "yl2_select"))
     print(f"yliluoma2 - default: PSNR-HVS "
           f"{yliluoma2['psnr_hvs_db'] - default['psnr_hvs_db']:+.4f} dB, bytes "
           f"{(yliluoma2['bytes'] - default['bytes']) / default['bytes']:+.4%}", flush=True)
@@ -1828,10 +1905,12 @@ def main() -> int:
     # each kernel's launches: from the encode of the path that it serves
     # (tk_select serves both; its count is the default path's)
     path_of = {"tk_select": default, "tk_select_wide": wide["wide256"],
-               "knn_bucket_top2": default, "knn_bucket_top2_v1": im2row_v1,
-               "blockify_field": im2row_v1}
+               "yl2_select": yliluoma2, "knn_bucket_top2": default,
+               "knn_bucket_top2_v1": im2row_v1, "blockify_field": im2row_v1}
     sources = {"tk_select": ("tk_dither.cu", "tiler_tpu/kernels/tk_dither.py:147"),
                "tk_select_wide": ("tk_dither.cu", "tiler_tpu/kernels/tk_dither.py:147"),
+               "yl2_select": ("yl2_dither.cu", "none: tiler_tpu/pipeline/dither.py:102 "
+                              "(yliluoma2_lists, XLA passes)"),
                "knn_bucket_top2": ("knn_topk.cu", "tiler_tpu/kernels/knn_topk.py:149"),
                "knn_bucket_top2_v1": ("knn_topk.cu", "tiler_tpu/kernels/knn_topk.py:204"),
                "blockify_field": ("blockify.cu", "tiler_tpu/kernels/blockify.py:46")}

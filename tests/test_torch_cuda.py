@@ -201,6 +201,78 @@ def test_yliluoma2_on_the_card_matches_the_cpu(cuda, mixed):
     assert torch.equal(got.cpu(), want)
 
 
+def _yl_cases(S, seed, device):
+    """Random tiles (a fifth of the slots invalid), Thomas Knoll's
+    adversarial tiles (equal lumas, duplicates, no valid color, one valid
+    slot), yl2_dither.range_case and, above 32 colors, the slot-edge tiles
+    (valid counts that leave a group of 32 partly padded), each as (pix,
+    mirror, pal_idx, pal4, valid) on ``device``."""
+    from tiler_tpu_torch.kernels import yl2_dither as t_yl
+
+    rng = np.random.default_rng(seed)
+    T, P = 301, 7
+    cases = [(rng.integers(0, 256, (T, 64, 3), dtype=np.uint8),
+              rng.integers(0, 4, T, dtype=np.uint8), rng.integers(0, P, T, dtype=np.int32),
+              rng.integers(0, 256, (P, S, 3), dtype=np.int32), rng.random((P, S)) < 0.8),
+             t_tk.adversarial_case(S, seed=S, reps=1), t_yl.range_case(S, seed=S)]
+    if S > 32:  # the wide palettes' edge cases
+        cases.append(t_tk.slot_edge_case(S, seed=S))
+    for pix, mirror, pidx, pal, valid in cases:
+        yield (torch.as_tensor(pix, device=device), torch.as_tensor(mirror, device=device),
+               torch.as_tensor(pidx, device=device),
+               t_yl.pal4_table(torch.as_tensor(pal, device=device)),
+               torch.as_tensor(valid, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed", [1, 4, 16])
+@pytest.mark.parametrize("S", [16, 33, 256])
+def test_yl2_kernel_matches_the_plain_passes(cuda, S, mixed):
+    """yl2_select's slots and trial count equal the plain passes' on the
+    card (random, adversarial, slot-edge and range tiles), one launch a
+    call."""
+    from tiler_tpu_torch.kernels import yl2_dither as t_yl
+
+    for args in _yl_cases(S, S * 100 + mixed, cuda):
+        want, want_trials = t_yl.yl2_select_plain(*args, mixed)
+        before = t_yl.yl2_select.launches
+        got, trials = t_yl.yl2_select(*args, mixed)
+        torch.cuda.synchronize()
+        assert t_yl.yl2_select.launches == before + 1
+        assert torch.equal(got, want)
+        assert int(trials) == int(want_trials)
+
+
+@pytest.mark.cuda
+def test_yliluoma2_encode_at_256_colors_writes_the_plain_passes_stream(cuda, tmp_path,
+                                                                      monkeypatch):
+    """An encode with Yliluoma2 at S = 256 on the card launches yl2_select
+    once and no Thomas Knoll kernel, and writes the stream that the plain
+    passes, put in the kernel's place on the card, write."""
+    from tiler_tpu_torch.config import EncoderSettings
+    from tiler_tpu_torch.kernels import yl2_dither as t_yl
+    from tiler_tpu_torch.pipeline import dither as t_dither
+    from tiler_tpu_torch.pipeline.encoder import Encoder
+    from tiler_tpu_torch.utils.clips import synthetic_clip
+
+    settings = EncoderSettings(palette_count=4, palette_size=256, motion_predict_radius=4,
+                               epu_knn_k=8, kmeans_iters=4, dithering_use_thomas_knoll=False)
+    clip = synthetic_clip(4, 64, 96)
+    streams = {}
+    for kernel in (True, False):
+        if not kernel:
+            monkeypatch.setattr(t_dither, "yl2_select", t_yl.yl2_select_plain)
+        before = (t_yl.yl2_select.launches, t_tk.tk_select.launches,
+                  t_tk.tk_select_wide.launches)
+        path = str(tmp_path / f"{kernel}.gtm")
+        enc = Encoder(settings, device=cuda, log=None).run_all(clip, 25.0, out_path=path)
+        assert (t_yl.yl2_select.launches - before[0], t_tk.tk_select.launches - before[1],
+                t_tk.tk_select_wide.launches - before[2]) == (int(kernel), 0, 0)
+        assert enc.step_stats["yl2_candidates"] > 0
+        streams[kernel] = open(path, "rb").read()
+    assert streams[True] == streams[False]
+
+
 @pytest.mark.cuda
 def test_device_ingest_on_the_card_matches_the_cpu(cuda):
     """planar_to_rgb is bit-identical (fp32 passes without fused

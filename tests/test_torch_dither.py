@@ -10,6 +10,7 @@ import torch
 
 from tiler_tpu.pipeline import dither as j_dither
 from tiler_tpu_torch.kernels import tk_dither as t_tk
+from tiler_tpu_torch.kernels import yl2_dither as t_yl
 from tiler_tpu_torch.pipeline import dither as t_dither
 
 
@@ -34,7 +35,7 @@ def test_yliluoma2_lists_bit_identical(mixed, seed):
     with jax.enable_x64(False):
         want_lists, want_count = j_dither.yliluoma2_lists(
             jnp.asarray(pix), jnp.asarray(pal), jnp.asarray(valid), 16, mixed)
-    lists, count = t_dither.yliluoma2_lists(
+    lists, count = t_yl.yliluoma2_lists(
         torch.from_numpy(pix), torch.from_numpy(pal), torch.from_numpy(valid), 16, mixed)
     assert lists.dtype == torch.int32 and count.dtype == torch.int32
     assert np.array_equal(count.numpy(), np.asarray(want_count))
@@ -92,5 +93,5 @@ def test_mirrored_bayer_matches():
 def test_yliluoma2_rejects_a_palette_of_another_size():
     pix, pal, valid = _pixel_case(16, 8, 0)
     with pytest.raises(ValueError, match="S=16"):
-        t_dither.yliluoma2_lists(torch.from_numpy(pix), torch.from_numpy(pal),
+        t_yl.yliluoma2_lists(torch.from_numpy(pix), torch.from_numpy(pal),
                                  torch.from_numpy(valid), 16, 4)

@@ -22,6 +22,7 @@ from tiler_tpu.pipeline import dither as j_dither
 from tiler_tpu_torch.kernels import blockify as t_blk
 from tiler_tpu_torch.kernels import knn_topk as t_knn
 from tiler_tpu_torch.kernels import tk_dither as t_tk
+from tiler_tpu_torch.kernels import yl2_dither as t_yl
 from tiler_tpu_torch.kernels import launch_counts, reset_launch_counts
 
 
@@ -328,5 +329,9 @@ def test_plain_versions_count_no_launches():
                              torch.zeros(t_knn.KD, 512, dtype=torch.bfloat16),
                              torch.zeros(512))
     t_blk.blockify_field(torch.zeros(16, 16, 8, dtype=torch.bfloat16))
-    assert launch_counts() == {"tk_select": 0, "tk_select_wide": 0, "knn_bucket_top2": 0,
-                               "knn_bucket_top2_v1": 0, "blockify_field": 0}
+    t_yl.yl2_select(torch.zeros(2, 64, 3, dtype=torch.uint8), torch.zeros(2, dtype=torch.uint8),
+                    torch.zeros(2, dtype=torch.int32), torch.zeros(1, 40, 4, dtype=torch.int32),
+                    torch.ones(1, 40, dtype=torch.bool), 4)
+    assert launch_counts() == {"tk_select": 0, "tk_select_wide": 0, "yl2_select": 0,
+                               "knn_bucket_top2": 0, "knn_bucket_top2_v1": 0,
+                               "blockify_field": 0}

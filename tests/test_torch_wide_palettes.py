@@ -36,6 +36,7 @@ from tiler_tpu.pipeline.encoder import Encoder as JaxEncoder
 from tiler_tpu_torch.bitstream.gtm import GTMReader
 from tiler_tpu_torch.config import EncoderSettings
 from tiler_tpu_torch.kernels import tk_dither as t_tk
+from tiler_tpu_torch.kernels import yl2_dither as t_yl
 from tiler_tpu_torch.pipeline import dither as t_dither
 from tiler_tpu_torch.pipeline.encoder import Encoder
 
@@ -236,7 +237,7 @@ def test_yliluoma2_lists_at_64():
     with jax.enable_x64(False):
         want_lists, want_count = j_dither.yliluoma2_lists(
             jnp.asarray(pix), jnp.asarray(pal), jnp.asarray(valid), 64, 4)
-    lists, count = t_dither.yliluoma2_lists(
+    lists, count = t_yl.yliluoma2_lists(
         torch.from_numpy(pix), torch.from_numpy(pal), torch.from_numpy(valid), 64, 4)
     assert np.array_equal(count.numpy(), np.asarray(want_count))
     assert np.array_equal(lists.numpy(), np.asarray(want_lists))
@@ -247,7 +248,7 @@ def test_yliluoma2_lists_at_64():
 def test_yliluoma2_chunk_follows_the_palette_size(S, mixed, tiles):
     """The [pixels, S, 2 * mixed, 4] int32 candidate table of a chunk
     stays at 1 GiB."""
-    assert t_dither.yliluoma2_chunk(S, mixed) == tiles
+    assert t_yl.yliluoma2_chunk(S, mixed) == tiles
     assert tiles * 64 * S * 2 * mixed * 4 * 4 == 1 << 30
 
 

@@ -4,8 +4,10 @@ kernel in its ``launches`` attribute."""
 from .blockify import blockify_field
 from .knn_topk import knn_bucket_top2, knn_bucket_top2_v1
 from .tk_dither import tk_select, tk_select_wide
+from .yl2_dither import yl2_select
 
-WRAPPERS = (tk_select, tk_select_wide, knn_bucket_top2, knn_bucket_top2_v1, blockify_field)
+WRAPPERS = (tk_select, tk_select_wide, yl2_select, knn_bucket_top2, knn_bucket_top2_v1,
+            blockify_field)
 
 
 def reset_launch_counts():

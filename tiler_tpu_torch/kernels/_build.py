@@ -42,6 +42,7 @@ _I = ctypes.c_int
 _SIGNATURES = (
     ("tk_select_launch", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
     ("tk_trunc_probe_launch", (_P, _I, _I, _I, _P)),
+    ("yl2_select_launch", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     ("knn_bucket_top2_launch", (_P, _P, _P, _P, _I, _I, _P)),
     ("knn_bucket_top2_v1_launch", (_P, _P, _P, _P, _P, _I, _I, _P)),
     ("blockify_launch", (_P, _P, _I, _I, _I, _P)),

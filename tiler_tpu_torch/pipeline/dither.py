@@ -13,14 +13,21 @@ each tile to its screen orientation first). Two ditherers, chosen by
   ``tiler_tpu/pipeline/dither.py:67-99``) as plain tensor passes, tiles in
   chunks sized from S. It runs on a CUDA tensor too, because the settings
   ask for it, and launches no kernel.
-- Yliluoma2 (:func:`yliluoma2_lists`): the mixing-plan construction of
-  ``tiler_tpu/pipeline/dither.py:102-181`` as plain integer tensor passes
-  on the encoder's device, tiles in chunks sized from S. The JAX package
-  has no kernel here either.
+- Yliluoma2: ``yl2_select`` (``kernels/yl2_dither.py``), which follows
+  the device of its inputs. On a card it is the port's own kernel (the
+  JAX package has none here), one launch for the whole corpus; on the
+  CPU the plain passes (``yliluoma2_lists`` there, the mixing-plan
+  construction of ``tiler_tpu/pipeline/dither.py:102-181``), tiles in
+  chunks sized from S, as the JAX package's CPU encode runs them.
 
-All are int32 and bit-identical to the JAX package's (and the two Thomas
-Knoll paths to each other). Reindex's palette-pixel hashes are taken
-here, as the JAX package's prefetch does.
+All are int32 and bit-identical to the JAX package's (the two Thomas
+Knoll paths to each other, the Yliluoma2 kernel to the plain passes).
+Reindex's palette-pixel hashes are taken here, as the JAX package's
+prefetch does. With Yliluoma2 the step counts into ``stats``:
+``dither_colors``, the valid colors of each pixel's palette summed over
+the corpus's pixels, and ``yl2_candidates``, the (color, total) trials of
+the plan search; both are device tensors on a card, which the encoder
+reads once the step has ended.
 """
 from __future__ import annotations
 
@@ -30,23 +37,14 @@ import torch
 from ..config import EncoderSettings
 from ..kernels.tk_dither import (BLUE_MUL, GREEN_MUL, LUMA_DIV, RED_MUL, RGB_W,
                                  check_pal_idx, mirrored_bayer, pal_table, tk_select)
+from ..kernels.yl2_dither import pal4_table, yl2_select, yl2_select_plain
 from ..models.state import EncodeState
 from .reindex import pal_hashes
 
 BIG = 1 << 30
-# Bytes of Yliluoma2's [pixels, S, 2 * mixed, 4] int32 candidate table a
-# chunk of tiles: 8,192 tiles at S = 16, mixed = 4 (a round holds about
-# five tensors of that size; the JAX package's 16,384 tiles would double
-# both), 512 tiles at S = 256.
-YLILUOMA_TABLE = 1 << 30
 # Elements of the plain Thomas Knoll path's [pixels, S] int32 step tensors
 # a chunk of tiles: 32,768 tiles at S = 16, 2,048 at S = 256.
 TK_PLAIN_ELEMS = 1 << 25
-
-
-def yliluoma2_chunk(S: int, mixed: int) -> int:
-    """Tiles per Yliluoma2 chunk: the candidate table near YLILUOMA_TABLE."""
-    return max(1, YLILUOMA_TABLE // (64 * S * 2 * mixed * 4 * 4))
 
 
 def _trunc_div(a: torch.Tensor, b: int) -> torch.Tensor:
@@ -130,83 +128,20 @@ def thomas_knoll_select(tiles_u8, mirror, pal_idx, pal_rgb, pal_valid,
                              chunk or max(1, TK_PLAIN_ELEMS // (64 * S)), pick)
 
 
-def yliluoma2_lists(pix_rgb, pal_rgb, pal_valid, S: int, mixed: int):
-    """Yliluoma2 mixing plans, after ``tiler_tpu.pipeline.dither.
-    yliluoma2_lists``: a 4-component (r, g, b, luma) distance with weights
-    (13, 13, 13, 32) and the reciprocal rounding
-    ``mixed = (sum * (65536 div t)) >> 16``.
-
-    pix_rgb [B, 3], pal_rgb [B, S, 3] (the palette of each pixel) integer
-    tensors, pal_valid [B, S] bool. Returns (lists [B, 2 * mixed] int32 of
-    palette slots, luma-sorted, unused entries last; count [B] int32).
-    The rounds end when every pixel's plan holds ``mixed`` entries, which
-    the host reads once a round (at most ``mixed`` rounds)."""
-    dev = pix_rgb.device
-    B = pix_rgb.shape[0]
-    cap = 2 * mixed
-    pix = pix_rgb.to(torch.int32)
-    pal = pal_rgb.to(torch.int32)
-    if pal.shape[1] != S:
-        raise ValueError(f"yliluoma2_lists: pal_rgb holds {pal.shape[1]} slots, S={S}")
-    lum_pal = pal[..., 0] * RED_MUL + pal[..., 1] * GREEN_MUL + pal[..., 2] * BLUE_MUL
-    lum_pix = pix[:, 0] * RED_MUL + pix[:, 1] * GREEN_MUL + pix[:, 2] * BLUE_MUL
-    target4 = torch.cat([pix, _trunc_div(lum_pix, LUMA_DIV)[:, None]], dim=1)  # [B, 4]
-    pal4 = torch.cat([pal, torch.div(lum_pal, LUMA_DIV, rounding_mode="floor")[..., None]],
-                     dim=2)  # [B, S, 4]
-    inval = ~pal_valid
-    tt = torch.arange(1, cap + 1, dtype=torch.int32, device=dev)  # candidate totals t
-    inv_t = (1 << 16) // tt  # the reference's FVecInv
-    w4 = torch.tensor([RGB_W, RGB_W, RGB_W, 32], dtype=torch.int32, device=dev)
-    pos = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
-
-    plan_count = torch.zeros(B, dtype=torch.int32, device=dev)
-    so_far = torch.zeros(B, 4, dtype=torch.int32, device=dev)
-    lists = torch.zeros(B, cap, dtype=torch.int32, device=dev)
-    while B and int(plan_count.min()) < mixed:
-        max_test = plan_count.clamp_min(1)
-        # after k = t - plan_count repeats: sum = so_far + k * color +
-        # k (k - 1) / 2 (the reference adds on all four lanes each repeat)
-        k = tt[None, :] - plan_count[:, None]  # [B, cap]
-        tmask = (k >= 1) & (k <= max_test[:, None])
-        bias = (k * (k - 1)) >> 1  # a product of neighbours: even, >= 0
-        sums = (so_far[:, None, None, :] + k[:, None, :, None] * pal4[:, :, None, :]
-                + bias[:, None, :, None])  # [B, S, cap, 4]
-        d = ((sums * inv_t[None, None, :, None]) >> 16) - target4[:, None, None, :]
-        pen = (d * d * w4).sum(dim=-1, dtype=torch.int32)  # [B, S, cap]
-        pen = torch.where(inval[:, :, None] | ~tmask[:, None, :], BIG, pen)
-        best = pen.reshape(B, -1).argmin(dim=1)  # the first minimum
-        chosen = torch.div(best, cap, rounding_mode="floor").to(torch.int32)
-        amount = ((best % cap + 1).to(torch.int32) - plan_count).clamp_min(1)
-        # `chosen` fills lists[plan_count : plan_count + amount]
-        wmask = (pos >= plan_count[:, None]) & (pos < (plan_count + amount)[:, None])
-        ch4 = pal4.gather(1, chosen.long()[:, None, None].expand(B, 1, 4))[:, 0]
-        done = plan_count >= mixed  # complete plans stay as they are
-        lists = torch.where(wmask & ~done[:, None], chosen[:, None], lists)
-        so_far = torch.where(done[:, None], so_far, so_far + ch4 * amount[:, None])
-        plan_count = torch.where(done, plan_count, plan_count + amount)
-
-    lum = lum_pal.gather(1, lists.long())
-    lum = torch.where(pos < plan_count[:, None], lum, BIG)
-    order = torch.sort(lum, dim=1, stable=True).indices
-    return lists.gather(1, order), plan_count
-
-
 def yliluoma2_select(tiles_u8, mirror, pal_idx, pal_rgb, pal_valid, mixed: int,
                      chunk: int | None = None) -> torch.Tensor:
-    """Yliluoma2 palette slot per pixel, tiles in chunks of ``chunk`` (by
-    default :func:`yliluoma2_chunk`).
+    """Yliluoma2 palette slot per pixel by the plain passes
+    (``kernels/yl2_dither.py::yliluoma2_lists``), tiles in chunks of
+    ``chunk`` (by default sized from S), on the device of the inputs; the
+    slots equal ``yl2_select``'s.
 
     tiles_u8 [T, 8, 8, 3] uint8, mirror [T] uint8, pal_idx [T] integer,
     pal_rgb [P, S, 3] integer, pal_valid [P, S] bool, all on one device.
     Returns [T, 8, 8] uint8."""
-    S = pal_rgb.shape[1]
-
-    def pick(pix, pal, valid, mapv):
-        lists, count = yliluoma2_lists(pix, pal, valid, S, mixed)
-        return lists.gather(1, ((mapv * count) >> 6)[:, None])[:, 0]
-
-    return _select_in_chunks(tiles_u8, mirror, pal_idx, pal_rgb.to(torch.int32), pal_valid,
-                             chunk or yliluoma2_chunk(S, mixed), pick)
+    T = tiles_u8.shape[0]
+    sel, _ = yl2_select_plain(tiles_u8.reshape(T, 64, 3), mirror, pal_idx,
+                              pal4_table(pal_rgb), pal_valid, mixed, chunk)
+    return sel.reshape(T, 8, 8)
 
 
 def _corpus_initial_mirrors(state: EncodeState):
@@ -226,11 +161,15 @@ def _corpus_initial_mirrors(state: EncodeState):
     return hm, vm
 
 
-def dither(state: EncodeState, settings: EncoderSettings, chunk: int = 16384) -> EncodeState:
-    """Every corpus tile through its palette. The kernel path is one
-    launch; the plain paths (plain Thomas Knoll, Yliluoma2) take the
-    corpus ``chunk`` tiles at a time, as the JAX package's XLA paths do
-    (each tile on its own, so the result does not depend on it)."""
+def dither(state: EncodeState, settings: EncoderSettings, chunk: int = 16384, *,
+           stats: dict | None = None) -> EncodeState:
+    """Every corpus tile through its palette. The kernel paths are one
+    launch; the plain Thomas Knoll path takes the corpus ``chunk`` tiles
+    at a time, as the JAX package's XLA path does, and Yliluoma2 on the
+    CPU chunks inside ``yl2_select`` (each tile on its own, so the result
+    does not depend on either). ``stats``: where the step's counts go
+    (module docstring)."""
+    stats = {} if stats is None else stats
     corpus = state.corpus_rgb
     dev = corpus.device
     T = len(corpus)
@@ -247,15 +186,15 @@ def dither(state: EncodeState, settings: EncoderSettings, chunk: int = 16384) ->
     if settings.dithering_use_thomas_knoll and settings.use_pallas_tk:
         sel = tk_select(corpus.reshape(T, 64, 3).contiguous(), mirror, pidx,
                         pal_table(pal_rgb, pal_valid))
+    elif not settings.dithering_use_thomas_knoll:
+        stats["dither_colors"] = 64 * pal_valid.sum(dim=1)[pidx.long()].sum()
+        sel, stats["yl2_candidates"] = yl2_select(
+            corpus.reshape(T, 64, 3).contiguous(), mirror, pidx, pal4_table(pal_rgb),
+            pal_valid.contiguous(), settings.dithering_yliluoma2_mixed_colors)
     else:
-        parts = []
-        for i in range(0, max(T, 1), chunk):
-            part = (corpus[i:i + chunk], mirror[i:i + chunk], pidx[i:i + chunk], pal_rgb, pal_valid)
-            if settings.dithering_use_thomas_knoll:
-                parts.append(thomas_knoll_select(*part))
-            else:
-                parts.append(yliluoma2_select(*part, settings.dithering_yliluoma2_mixed_colors))
-        sel = torch.cat(parts)
+        sel = torch.cat([thomas_knoll_select(corpus[i:i + chunk], mirror[i:i + chunk],
+                                             pidx[i:i + chunk], pal_rgb, pal_valid)
+                         for i in range(0, max(T, 1), chunk)])
     state.corpus_pal_pixels = sel.reshape(T, 8, 8)
     state._pal_hashes_prefetch = pal_hashes(state.corpus_pal_pixels)
     return state

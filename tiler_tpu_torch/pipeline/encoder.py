@@ -256,8 +256,15 @@ class Encoder:
     def dither(self):
         t0 = self._start()
         with trace_step("dither", device=self.device):
-            dither_mod.dither(self.state, self.settings)
+            dither_mod.dither(self.state, self.settings, stats=self.step_stats)
         self._stamp("dither", t0)
+        # the step's device counters, read once _stamp has waited for it
+        stats = self.step_stats
+        if "yl2_candidates" in stats:
+            for key in ("dither_colors", "yl2_candidates"):
+                stats[key] = int(stats[key])
+            self.log(f"dither: {stats['yl2_candidates']} Yliluoma2 trials over "
+                     f"{stats['dither_colors']} valid colors of the pixels' palettes")
         return self
 
     def reconstruct(self):
